@@ -1,0 +1,13 @@
+"""PyTorch/CUDA port of ``fgs_nerf_tpu`` (the JAX package stays the reference).
+
+The package mirrors ``fgs_nerf_tpu/`` module for module.  Plain tensor
+code is PyTorch; every Pallas TPU kernel on a ported path is a CUDA C++
+kernel under ``csrc/``, built with ``nvcc`` for ``sm_90a`` at first use
+and bound with ``ctypes`` (``ops/cuda/``).  A kernel wrapper launches its
+kernel for CUDA tensors and runs its plain PyTorch twin for CPU tensors;
+nothing else selects between the two.
+
+Ported so far: the coarse-stage train step on the sorted channel-major
+engine (``train/trainer.py:make_train_step``).  Importing the package
+imports neither ``jax`` nor any module of ``fgs_nerf_tpu``.
+"""

@@ -1,0 +1,35 @@
+"""Default device and float32 numerics for the port.
+
+Entry points take an explicit ``device``; ``None`` means the CUDA card,
+and asking for it without one raises (no silent fall back to the CPU).
+Callers that want the CPU (the parity tests) pass ``device="cpu"``.
+
+TF32 stays off for matmuls and convolutions: the reference numerics are
+float32 (the JAX package's CPU path), and TF32 keeps ~3 decimal digits.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+DeviceLike = Optional[Union[str, torch.device]]
+
+
+def set_f32_numerics() -> None:
+    """Full-precision float32 matmuls and convolutions on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` -> ``cuda``; raises when CUDA is missing and the caller
+    did not ask for the CPU."""
+    set_f32_numerics()
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the plain "
+            "PyTorch paths on the CPU"
+        )
+    return dev

@@ -1,0 +1,33 @@
+"""MLP parameter dicts with torch-Linear-compatible init.
+
+Port of ``fgs_nerf_tpu/models/mlp.py:17-78``: parameters are flat dicts
+``{'w0': [in, out], 'b0': [out], ...}`` drawn from
+U(-1/sqrt(fan_in), 1/sqrt(fan_in)).  Randomness comes from a
+``torch.Generator`` (its numbers differ from ``jax.random``; the parity
+tests carry weights across with ``convert.py`` instead).
+"""
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import torch
+
+
+def init_mlp(
+    generator: torch.Generator, dims: Sequence[int], device: torch.device
+) -> Dict[str, torch.Tensor]:
+    """dims = [in, hidden, ..., out]; len(dims)-1 linear layers.  The
+    generator must live on ``device``."""
+    params = {}
+    for i, (d_in, d_out) in enumerate(zip(dims[:-1], dims[1:])):
+        bound = 1.0 / float(d_in) ** 0.5
+        for name, shape in ((f"w{i}", (d_in, d_out)), (f"b{i}", (d_out,))):
+            u = torch.rand(shape, generator=generator, device=device)
+            params[name] = u * (2.0 * bound) - bound
+    return params
+
+
+def refnet_dims(d_in: int, width: int, depth: int) -> list:
+    """Linear(d,W) + (depth-2) x Linear(W,W) + Linear(W,3)
+    (`models/mlp.py:69-72`)."""
+    return [d_in] + [width] * (depth - 1) + [3]

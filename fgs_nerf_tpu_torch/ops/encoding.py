@@ -1,0 +1,31 @@
+"""Positional encodings and mirror reflection.
+
+Port of ``fgs_nerf_tpu/ops/encoding.py:19-40`` without ``sincos_encode``
+(the channel-major shading builds its encodings in place) and the IDE,
+which no forward calls.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def freq_bank(n: int, device=None) -> torch.Tensor:
+    """[2^0, ..., 2^(n-1)] (`ops/encoding.py:19-21`)."""
+    return torch.tensor([2.0**i for i in range(n)], dtype=torch.float32,
+                        device=device)
+
+
+def reflect(viewdirs: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
+    """Mirror reflection ``d - 2(d.n)n`` (`ops/encoding.py:32-35`)."""
+    return viewdirs - 2.0 * torch.sum(
+        viewdirs * normal, dim=-1, keepdim=True
+    ) * normal
+
+
+def l2_normalize(x: torch.Tensor,
+                 eps: float = float(np.finfo(np.float32).eps)) -> torch.Tensor:
+    """Unit-normalize along the last axis (`ops/encoding.py:38-40`)."""
+    return x / torch.sqrt(
+        torch.clamp(torch.sum(x**2, dim=-1, keepdim=True), min=eps)
+    )

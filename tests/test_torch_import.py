@@ -1,0 +1,65 @@
+"""The port imports neither JAX nor the JAX package, and asks for the
+card unless told otherwise."""
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import fgs_nerf_tpu_torch as P
+names = [m.name for m in pkgutil.walk_packages(P.__path__, P.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.") or k == "jaxlib"
+             or k.startswith("jaxlib.") or k == "fgs_nerf_tpu"
+             or k.startswith("fgs_nerf_tpu."))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    for name in ("fgs_nerf_tpu_torch.train.trainer",
+                 "fgs_nerf_tpu_torch.ops.cuda.window_gather_cm",
+                 "fgs_nerf_tpu_torch.ops.cuda.scatter_combine_cm",
+                 "fgs_nerf_tpu_torch.ops.cuda.fused_shade_cm",
+                 "fgs_nerf_tpu_torch.convert"):
+        assert name in res["modules"]
+
+
+def test_entry_points_default_to_the_card():
+    import torch
+
+    from fgs_nerf_tpu_torch.device import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            resolve_device(None)
+
+
+def test_kernel_sources_and_wrappers():
+    from fgs_nerf_tpu_torch.ops.cuda import (
+        fused_shade_cm, scatter_combine_cm, window_gather_cm,
+    )
+
+    for mod in (window_gather_cm, scatter_combine_cm, fused_shade_cm):
+        k = mod.KERNEL
+        assert k.source.exists(), k.source
+        text = k.source.read_text()
+        for fn in k.launchers:
+            assert f'extern "C" int {fn}(' in text
+        assert set(k.launches) == set(k.launchers)
+        assert k.replaces.startswith("fgs_nerf_tpu/ops/pallas/")

@@ -1,0 +1,175 @@
+"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+
+These tests need an NVIDIA card (sm_90a) and ``nvcc``; without a card
+they skip.  Run them on the H100 with
+``python -m pytest tests/test_torch_kernels.py -q``.  The file imports
+no JAX (the machine with the card has none).  The plain twins are what
+the CPU parity tests hold against the JAX package.
+
+Tolerances: B1 sums in the plain version's order with IEEE
+multiplies/adds, so it must match bit for bit; B2 adds runs of up to 512
+samples in sample order and matches the plain twin on the CPU bit for
+bit there (longer runs go through block sums: reassociation), while on
+the card the twin's ``index_add_`` adds in any order (a 500-sample run
+of one row reassociates to ~4e-5), 1e-4; B3/B4 share
+every bf16 rounding with their twins but sum in another order, so a
+hidden value can land one bf16 ulp away (logits within 1e-2, at most
+1% past 1e-5; cotangents rel L2 1e-3).
+"""
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+
+from fgs_nerf_tpu_torch.core.box import SceneBox
+from fgs_nerf_tpu_torch.models import sdf_voxel as M
+from fgs_nerf_tpu_torch.ops import sorted_cm as ST
+from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
+from fgs_nerf_tpu_torch.ops.cuda import scatter_combine_cm as B2
+from fgs_nerf_tpu_torch.ops.cuda import window_gather_cm as B1
+from fgs_nerf_tpu_torch.train.losses import LossWeights
+from fgs_nerf_tpu_torch.train.trainer import make_loss_and_grads
+
+PE = (5, 5, 1)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run `python -m pytest "
+                    "tests/test_torch_kernels.py` on the H100")
+    return torch.device("cuda")
+
+
+@contextlib.contextmanager
+def plain_twins():
+    """Route the four kernel call sites to their plain twins."""
+    saved = (ST.window_gather_cm, ST.dense_accumulate_cm,
+             FS.fused_shade_cm_fwd, FS.fused_shade_cm_bwd)
+    ST.window_gather_cm = B1.window_gather_cm_plain
+    ST.dense_accumulate_cm = B2.dense_accumulate_cm_plain
+    FS.fused_shade_cm_fwd = FS.fused_shade_cm_fwd_plain
+    FS.fused_shade_cm_bwd = FS.fused_shade_cm_bwd_plain
+    try:
+        yield
+    finally:
+        (ST.window_gather_cm, ST.dense_accumulate_cm,
+         FS.fused_shade_cm_fwd, FS.fused_shade_cm_bwd) = saved
+
+
+def _rel_l2(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+
+def test_b1_b2_match_plain(cuda):
+    rng = np.random.default_rng(5)
+    grid, c, m, n_sent = (20, 21, 22), 16, 40000, 3000
+    r = ST.padded_rows_cm(grid)
+    zp = ST.z_stride(grid[2])
+    b = np.stack([rng.integers(0, s + 1, size=m - n_sent) for s in grid], -1)
+    rows = (b[:, 0] * (grid[1] + 2) + b[:, 1]) * zp + b[:, 2]
+    rows[:500] = rows[0]
+    keys = torch.from_numpy(np.sort(np.concatenate(
+        [rows, np.full(n_sent, r)])).astype(np.int32)).to(cuda)
+    w8 = torch.from_numpy(rng.uniform(size=(8, m)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(c, m)).astype(np.float32)).to(cuda)
+    field = torch.from_numpy(rng.normal(size=(c, *grid)).astype(np.float32)).to(cuda)
+    pack = ST.build_cell_pack_cm(field, ST.rp_for(grid))
+
+    n0 = B1.KERNEL.launches["window_gather_cm"]
+    got = B1.window_gather_cm(pack, keys, w8)
+    torch.cuda.synchronize()
+    assert B1.KERNEL.launches["window_gather_cm"] == n0 + 1
+    assert torch.equal(got, B1.window_gather_cm_plain(pack, keys, w8))
+
+    kc = torch.clamp(keys, max=r - 2)
+    got = B2.dense_accumulate_cm(kc, w8, g, r)
+    torch.cuda.synchronize()
+    # runs of up to 512 samples add in sample order, as the CPU twin does:
+    # bit for bit; the 3,000-sample sentinel run (rows r-2, r-1) goes
+    # through the kernel's block sums: float32 reassociation
+    cpu = B2.dense_accumulate_cm_plain(kc.cpu(), w8.cpu(), g.cpu(), r)
+    assert torch.equal(got.cpu()[:, :r - 2], cpu[:, :r - 2])
+    torch.testing.assert_close(got.cpu(), cpu, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got, B2.dense_accumulate_cm_plain(kc, w8, g, r),
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, B2.dense_accumulate_cm(kc, w8, g, r))
+
+
+@pytest.mark.parametrize("use_vd", [True, False])
+def test_b3_b4_match_plain(cuda, use_vd):
+    rng = np.random.default_rng(6)
+    m = 5000
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.normal(size=shape) * scale).astype(np.float32)).to(cuda)
+
+    ins = [t(12, m), t(3, m), t(3, m), t(3, m), t(3, m) if use_vd else None]
+    cin = sum(FS.shade_layout(12, *PE, use_vd))
+    dims = (cin, FS.KERNEL_HIDDEN, FS.KERNEL_HIDDEN, 3)
+    ws = [t(i, o, scale=1 / np.sqrt(i)) for i, o in zip(dims[:-1], dims[1:])]
+    bs = [t(o, scale=0.1) for o in dims[1:]]
+    g = t(3, m)
+    got = FS.fused_shade_cm_fwd(*ins, ws, bs, *PE)
+    err = (got - FS.fused_shade_cm_fwd_plain(*ins, ws, bs, *PE)).abs()
+    assert float(err.max()) < 1e-2
+    assert float((err > 1e-5).float().mean()) < 0.01
+    d_k, dws_k, dbs_k = FS.fused_shade_cm_bwd(*ins, ws, bs, g, *PE)
+    d_p, dws_p, dbs_p = FS.fused_shade_cm_bwd_plain(*ins, ws, bs, g, *PE)
+    for a, b in zip(list(d_k) + dws_k + dbs_k, list(d_p) + dws_p + dbs_p):
+        if b is None:
+            assert a is None
+            continue
+        assert _rel_l2(a, b) < 1e-3
+    d_again = FS.fused_shade_cm_bwd(*ins, ws, bs, g, *PE)
+    assert all(torch.equal(a, b) for a, b in zip(dws_k, d_again[1]))
+
+
+def test_coarse_step_kernels_match_plain(cuda):
+    """A small coarse step (20^3 grid, 256 rays, refnet width 192)
+    through the four kernels and through their plain twins."""
+    kw = dict(stage="coarse", xyz_min=[-1, -1, -1], xyz_max=[1, 1, 1],
+              num_voxels=20**3, num_voxels_base=20**3, stepsize=0.5,
+              k0_dim=12, refnet_width=192, refnet_depth=3, posbase_pe=5,
+              viewbase_pe=1, refbase_pe=5, smooth_ksize=5, smooth_sigma=0.8,
+              s_start=0.2, sample_k=32, shade_remat=False, engine="sorted")
+    cfg = M.make_model_config(**kw)
+    params = M.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                           cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    params["k0"] = torch.randn(params["k0"].shape, generator=gen,
+                               device=cuda) * 0.3
+    n = 256
+    rays_o = torch.tensor([0.0, 0.1, 2.6], device=cuda).expand(n, 3).contiguous()
+    look = torch.randn((n, 3), generator=gen, device=cuda) * 0.4
+    rays_d = look - rays_o
+    viewdirs = rays_d / rays_d.norm(dim=-1, keepdim=True)
+    target = torch.rand((n, 3), generator=gen, device=cuda)
+    box = SceneBox.create([-1, -1, -1], [1, 1, 1], cuda)
+    fn = make_loss_and_grads(
+        cfg, box, LossWeights(weight_main=1.0, weight_rgbper=0.2,
+                              weight_entropy_last=1e-3,
+                              weight_orientation=1e-4, sigmoid_rgb_loss=0.1,
+                              weight_tv_density=0.01, ori_tv=True),
+        near=0.2, bg=1.0, sdf_tv=0.1, smooth_grad_tv=0.05,
+        use_nonempty_mask=False)
+    args = (params, {}, rays_o, rays_d, viewdirs, target,
+            torch.tensor(0.2, device=cuda), 1.0)
+    before = {k: dict(v.KERNEL.launches) for k, v in
+              (("b1", B1), ("b2", B2), ("fs", FS))}
+    _, lk, gk = fn(*args)
+    torch.cuda.synchronize()
+    assert B1.KERNEL.launches["window_gather_cm"] > before["b1"]["window_gather_cm"]
+    assert B2.KERNEL.launches["dense_accumulate_cm"] > before["b2"]["dense_accumulate_cm"]
+    assert FS.KERNEL.launches["fused_shade_fwd"] > before["fs"]["fused_shade_fwd"]
+    assert FS.KERNEL.launches["fused_shade_bwd"] > before["fs"]["fused_shade_bwd"]
+    with plain_twins():
+        _, lp, gp = fn(*args)
+    assert torch.isfinite(lk["loss"])
+    torch.testing.assert_close(lk["loss"], lp["loss"], rtol=1e-4, atol=0)
+    for name in ("sdf", "k0"):
+        assert _rel_l2(gk[name], gp[name]) < 1e-3
+    for name in gk["refnet"]:
+        assert _rel_l2(gk["refnet"][name], gp["refnet"][name]) < 1e-3
