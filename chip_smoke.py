@@ -6,9 +6,9 @@ and check it.  Run from the repository root with no arguments:
 
 Phases (any failure raises and exits nonzero, with no result line):
 
-1. Build: compile every CUDA kernel of the coarse train step from
-   ``fgs_nerf_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel)
-   and print the card's name and power limit.
+1. Build: compile every CUDA kernel of the coarse and fine train steps
+   from ``fgs_nerf_tpu_torch/csrc`` (one ``nvcc`` per source, in
+   parallel) and print the card's name and power limit.
 2. Kernel checks: run one coarse step at the ``bench.py`` configuration
    (8,192 rays, 114^3 grid, sample_k 288 -> M = 2,359,296 samples,
    refnet 90 -> 192 -> 192 -> 3) and keep the inputs each kernel wrapper
@@ -26,17 +26,36 @@ Phases (any failure raises and exits nonzero, with no result line):
    one through their plain twins from the same state; compare loss,
    gradients and post-Adam parameters.
 
+The fine stage, at the ``bench.py:_fine_workload`` configuration
+(8,192 rays, 256^3 grid, sample_k 512 -> 4,194,304 pass-1 samples,
+shade_k 128 -> 1,048,576 pass-2 samples, rgbnet 106 -> 256 x 4, refnet
+307 -> 256 x 3 -> 3, 16 z/y and 8 x taps, TV injected):
+
+5. Fine kernel checks: one fine step with every kernel call recorded (B1
+   and B2 in both passes, B5 and B6 in the z/y and the x tap call); each
+   call's kernel is held against its twin, timed, and bounded.  Bytes
+   of a sparse serve count the pack columns its rows touch.
+6. Fine main path: zero the counts, 2 warm-up and 4 timed steps; the
+   loss must be finite and fall, and B1, B2, B5 and B6 must each have
+   launched twice per step.  Profile two steps.
+7. Masked traffic: two fine steps behind a mask cache built from the
+   initial ball SDF band, with the B2 / B6 checks on that step's calls
+   (the sentinel runs are long there).
+8. Fine kernel path against plain path, as phase 4.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
-Tolerances and why: B1 sums in its twin's order with IEEE operations,
-so it must be bit-equal; B2's twin uses ``index_add_``, whose atomics add
-in any order (relative 1e-4 of the largest value); B3/B4 share every
+Tolerances and why: B1 and B5 sum in their twins' order with IEEE
+operations, so they must be bit-equal; the B2 / B6 twins use
+``index_add_``, whose atomics add in any order (relative 1e-4 of the
+largest value), and B2 / B6 must repeat bit for bit; B3/B4 share every
 bf16 rounding with their twins but sum in another order, so a hidden
 value can land one bf16 ulp away (logits: max 1e-2, at most 1% past
-1e-5; cotangents: relative L2 1e-3).  Whole-step gradients: relative L2
-1e-2; post-Adam parameters where |g| > 1e-5: 1e-4 (Adam's first step is
-lr * g / (|g| + 1e-7), steep where |g| is small).
+1e-5; cotangents: relative L2 1e-3).  Whole-step losses: relative 1e-4;
+gradients: relative L2 1e-2; post-Adam parameters where |g| > 1e-5:
+1e-4 (Adam's first step is lr * g / (|g| + 1e-8), steep where |g| is
+small).
 """
 import contextlib
 import json
@@ -50,6 +69,7 @@ PEAK_BF16_FLOPS = 989e12     # dense tensor-core bf16
 PEAK_F32_FLOPS = 67e12       # fp32 outside the tensor cores
 N_WARMUP = 2
 N_STEPS = 10
+N_FINE_STEPS = 4
 
 
 def _card_line():
@@ -95,10 +115,14 @@ def _rel_l2(a, b):
 
 
 _BUCKETS = (  # kernel-name fragments -> bucket, first match wins
+    ("serve B5", ("tap_window_serve",)),
+    ("accumulate B6", ("tap_run_starts", "tap_chunk_sums",
+                       "tap_dense_accumulate")),
     ("serve B1", ("window_gather_cm",)),
     ("accumulate B2", ("run_starts", "chunk_sums", "dense_accumulate_cm")),
     ("shade B3", ("fused_shade_fwd",)),
     ("shade B4", ("fused_shade_bwd", "reduce_partials")),
+    ("matmul", ("gemm", "Gemm", "cutlass")),
     ("sort", ("sort", "radix", "Sort")),
     ("gather/scatter", ("index", "gather", "scatter", "Index")),
     ("reduce", ("reduce", "Reduce")),
@@ -106,7 +130,7 @@ _BUCKETS = (  # kernel-name fragments -> bucket, first match wins
 )
 
 
-def _device_breakdown(torch, run_step, step_ms, card):
+def _device_breakdown(torch, run_step, step_ms, card, path="coarse"):
     """Profile two steps; print device time per step by bucket, the top
     kernels, and the device's idle share against the unprofiled step."""
     from torch.profiler import ProfilerActivity, profile
@@ -134,12 +158,348 @@ def _device_breakdown(torch, run_step, step_ms, card):
         buckets[bucket] = buckets.get(bucket, 0.0) + t
     top = sorted(kernels, key=lambda k: -k[1])[:12]
     print(json.dumps({
-        "device_ms_per_step": busy, "step_ms": step_ms,
+        "path": path, "device_ms_per_step": busy, "step_ms": step_ms,
         "idle_share": (1.0 - busy / step_ms) if busy else None,
         "buckets_ms": buckets, "n_kernel_names": len(kernels),
         "top": [{"kernel": n[:90], "ms": t, "calls": c} for n, t, c in top],
         "card": card,
     }))
+
+
+def _clone(a, torch):
+    if isinstance(a, torch.Tensor):
+        return a.detach().clone()
+    if isinstance(a, (list, tuple)):
+        return type(a)(_clone(x, torch) for x in a)
+    return a
+
+
+@contextlib.contextmanager
+def _patched(pairs):
+    """Set ``module.attr = value`` for each (module, attr, value) and
+    restore the old values on the way out."""
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in pairs]
+    for mod, attr, value in pairs:
+        setattr(mod, attr, value)
+    try:
+        yield
+    finally:
+        for mod, attr, value in saved:
+            setattr(mod, attr, value)
+
+
+def _plain_twins(ST, FS, B1, B2, B56):
+    """Route the six kernel call sites to their plain twins."""
+    return _patched([
+        (ST, "window_gather_cm", B1.window_gather_cm_plain),
+        (ST, "dense_accumulate_cm", B2.dense_accumulate_cm_plain),
+        (ST, "tap_window_serve_cm", B56.tap_window_serve_cm_plain),
+        (ST, "tap_dense_accumulate_cm", B56.tap_dense_accumulate_cm_plain),
+        (FS, "fused_shade_cm_fwd", FS.fused_shade_cm_fwd_plain),
+        (FS, "fused_shade_cm_bwd", FS.fused_shade_cm_bwd_plain),
+    ])
+
+
+def _leaves(tree, prefix=""):
+    for key, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + key + ".")
+        else:
+            yield prefix + key, v
+
+
+def _step_vs_plain(torch, loss_and_grads, step, state, buffers, batch, s_val,
+                   lrs, twins):
+    """One step through the kernels and one through the plain twins from
+    the same state: loss within 1e-4 relative, gradients within relative
+    L2 1e-2, post-Adam parameters within 1e-4 where |g| > 1e-5.  The
+    kernel path's graph is freed before the plain path runs."""
+    params, _ = state
+    _, lk, gk = loss_and_grads(params, buffers, *batch, s_val, 1.0)
+    loss_k = float(lk["loss"].detach())
+    pk, _, _ = step(*state, buffers, *batch, s_val, lrs, 1.0)
+    del lk
+    torch.cuda.empty_cache()
+    with twins:
+        _, lp, gp = loss_and_grads(params, buffers, *batch, s_val, 1.0)
+        loss_p = float(lp["loss"].detach())
+        del lp
+        pp, _, _ = step(*state, buffers, *batch, s_val, lrs, 1.0)
+    report = {"loss_kernel": loss_k, "loss_plain": loss_p}
+    _check(abs(loss_k - loss_p) <= 1e-4 * abs(loss_p), report)
+    gp_l, pk_l, pp_l = dict(_leaves(gp)), dict(_leaves(pk)), dict(_leaves(pp))
+    for name, a in _leaves(gk):
+        b = gp_l[name]
+        if name == "s_val":
+            continue
+        rel = _rel_l2(a, b)
+        report[f"grad_rel_l2.{name}"] = rel
+        _check(rel < 1e-2, (name, rel))
+        clear = b.abs() > 1e-5
+        if bool(clear.any()):
+            d = float((pk_l[name] - pp_l[name])[clear].abs().max())
+            report[f"post_adam_max_abs.{name}"] = d
+            _check(d < 1e-4, (name, d))
+    return report
+
+
+def _touched_bytes(torch, cols, n_rows_pack, rows_per_col):
+    """f32 bytes of the pack columns ``cols`` (any shape) reach, each once."""
+    c = cols.reshape(-1)
+    c = torch.unique(c[(c >= 0) & (c < n_rows_pack)])
+    return c.numel() * rows_per_col * 4
+
+
+def _check_serve(torch, name, fn, plain, args, touched, n_flops, path):
+    """A serve kernel (B1, B5): bit-equal to its twin; timed; bound by the
+    bytes its call must move (the touched pack columns, inputs, output)."""
+    got = fn(*args)
+    want = plain(*args)
+    err = float((got - want).abs().max())
+    _check(err == 0.0, f"{name} ({path}) differs from its plain twin: {err}")
+    nb = touched + _nbytes(*args[1:], got)
+    bound = _bound(nb, n_flops, PEAK_F32_FLOPS)
+    return dict(path=path, max_abs_err=err, m=args[1].numel(),
+                ms=_time_ms(lambda: fn(*args), 5, torch),
+                plain_ms=_time_ms(lambda: plain(*args), 2, torch),
+                bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+                touched_mb=touched / 1e6,
+                whole_pack_bound_ms=_nbytes(args[0]) / PEAK_BYTES_PER_S * 1e3)
+
+
+def _check_accumulate(torch, name, fn, plain, args, lib_args, n_flops, path):
+    """An accumulate kernel (B2, B6): within 1e-4 of the largest value of
+    its twin (``index_add_`` atomics add in any order), bit-equal on a
+    repeat; timed; bound by inputs read once and the dense output written
+    once; the library time is ``index_add_`` alone on formed updates."""
+    got = fn(*args)
+    want = plain(*args)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    _check(err <= 1e-4 * scale + 1e-12, f"{name} ({path}): {err} vs {scale}")
+    _check(torch.equal(got, fn(*args)), f"{name} ({path}) is not deterministic")
+    keys = lib_args[0]
+    longest = int(torch.unique_consecutive(torch.sort(keys)[0],
+                                           return_counts=True)[1].max())
+    bound = _bound(_nbytes(*args[:-1], got), n_flops, PEAK_F32_FLOPS)
+    del got, want
+    idx, upd, shape = lib_args[1:]
+    return dict(path=path, max_abs_err=err, m=args[0].numel(),
+                longest_run=longest,
+                ms=_time_ms(lambda: fn(*args), 3, torch),
+                plain_ms=_time_ms(lambda: plain(*args), 2, torch),
+                bound_ms=bound[0], bound_by=bound[1],
+                library_ms=_time_ms(
+                    lambda: torch.zeros(shape, device=upd.device).index_add_(
+                        1, idx, upd), 2, torch))
+
+
+def _fine_phases(torch, np, card, dev, batch, n_rand):
+    """Phases 5-8 at the ``bench.py:_fine_workload`` configuration.
+    Returns (per-kernel lists of checked calls, main-path launch counts,
+    masked-path launch counts)."""
+    from fgs_nerf_tpu_torch.core.box import SceneBox
+    from fgs_nerf_tpu_torch.models import sdf_voxel as M
+    from fgs_nerf_tpu_torch.ops import sorted_cm as ST
+    from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
+    from fgs_nerf_tpu_torch.ops.cuda import scatter_combine_cm as B2
+    from fgs_nerf_tpu_torch.ops.cuda import tap_serve_cm as B56
+    from fgs_nerf_tpu_torch.ops.cuda import window_gather_cm as B1
+    from fgs_nerf_tpu_torch.optim.masked_adam import ParamOpts, init_state
+    from fgs_nerf_tpu_torch.train.losses import LossWeights
+    from fgs_nerf_tpu_torch.train.trainer import (
+        make_loss_and_grads, make_train_step,
+    )
+
+    xyz_min = np.array([-1.0, -1.0, -1.0], np.float32)
+    xyz_max = np.array([1.0, 1.0, 1.0], np.float32)
+    displace = (0.5, 1.0, 1.5, 2.0)
+    cfg = M.make_model_config(
+        stage="fine", xyz_min=xyz_min, xyz_max=xyz_max,
+        num_voxels=256**3, num_voxels_base=256**3, stepsize=0.5,
+        k0_dim=12, rgbnet_width=256, rgbnet_depth=4, refnet_width=256,
+        refnet_depth=4, posbase_pe=5, viewbase_pe=3, refbase_pe=8,
+        grad_feat=displace, sdf_feat=displace, center_sdf=True,
+        use_viewdir=True, s_ratio=50.0, s_start=0.05, fast_color_thres=1e-4,
+        shade_k=128, sample_k=512, shade_remat=False, engine="sorted",
+    )
+    box = SceneBox.create(xyz_min, xyz_max, dev)
+    loss_w = LossWeights(
+        weight_main=1.0, weight_rgbper=0.0, weight_entropy_last=1e-3,
+        weight_orientation=1e-4, sigmoid_rgb_loss=0.02,
+        weight_tv_density=0.01, weight_tv_k0=0.0, ori_tv=False,
+    )
+    params0 = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                            dev)
+    opts = {k: ParamOpts(skip_zero_grad=k in ("k0", "sdf")) for k in params0}
+    lrs = {"sdf": 5e-3, "k0": 0.1, "refnet": 1e-3, "rgbnet": 1e-3}
+    s_val = torch.tensor(0.05, device=dev)
+    loss_and_grads = make_loss_and_grads(
+        cfg, box, loss_w, near=0.2, bg=1.0, sdf_tv=0.1, smooth_grad_tv=0.05,
+        use_nonempty_mask=False)
+    step = make_train_step(
+        cfg, box, loss_w, opts, near=0.2, bg=1.0, n_rand=n_rand, sdf_tv=0.1,
+        smooth_grad_tv=0.05, inject_tv=True, tv_dense=True,
+        weight_tv_density=0.01, weight_tv_k0=0.0, use_nonempty_mask=False)
+    m1, m2 = n_rand * cfg.sample_k, n_rand * cfg.shade_k
+    print(json.dumps({
+        "config": "bench.py fine", "world_size": cfg.world_size,
+        "s_max": cfg.s_max, "samples_pass1": m1, "samples_pass2": m2,
+        "padded_rows": ST.padded_rows_cm(cfg.world_size),
+        "pack_cols": ST.rp_for(cfg.world_size),
+        "tap_bounds_zy": ST.tap_bounds(cfg.world_size),
+        "rgbnet_in": cfg.rgbnet_in_dim(), "refnet_in": cfg.refnet_in_dim()}))
+    sites = {"window_gather_cm": (ST, B1.KERNEL),
+             "dense_accumulate_cm": (ST, B2.KERNEL),
+             "tap_window_serve_cm": (ST, B56.KERNEL),
+             "tap_dense_accumulate_cm": (ST, B56.KERNEL)}
+
+    def record(names, calls):
+        def rec(name, fn):
+            def wrapped(*args):
+                calls.setdefault(name, []).append(_clone(args, torch))
+                return fn(*args)
+            return wrapped
+        return _patched([(ST, n, rec(n, getattr(ST, n))) for n in names])
+
+    def label(name, args):
+        """Which call of the step: pass 1 / 2 by the sample count, z/y or
+        x taps by the tap count (delta is args[2] of B5, args[1] of B6)."""
+        if name == "tap_window_serve_cm":
+            n_taps = args[2].shape[0]
+        elif name == "tap_dense_accumulate_cm":
+            n_taps = args[1].shape[0]
+        else:
+            return "fine pass 1" if args[1].shape[-1] == m1 else "fine pass 2"
+        return "fine z/y taps" if n_taps == 4 * len(displace) else "fine x taps"
+
+    def check(name, args, path):
+        if name == "window_gather_cm":
+            pack, rows, w8 = args
+            touched = _touched_bytes(torch, torch.stack([rows, rows + 1]),
+                                     pack.shape[1], pack.shape[0])
+            return _check_serve(torch, name, B1.window_gather_cm,
+                                B1.window_gather_cm_plain, args, touched,
+                                16 * (pack.shape[0] // 4) * rows.numel(), path)
+        if name == "tap_window_serve_cm":
+            pack, rows, delta, w8t = args
+            cols = rows[None, :] + delta
+            touched = _touched_bytes(torch, torch.stack([cols, cols + 1]),
+                                     pack.shape[1], 4)
+            return _check_serve(torch, name, B56.tap_window_serve_cm,
+                                B56.tap_window_serve_cm_plain, args, touched,
+                                16 * delta.numel(), path)
+        if name == "dense_accumulate_cm":
+            rows, w8, g, n_rows = args
+            upd0, upd1 = B2.dense_updates(w8, g)
+            lib = (rows, torch.cat([rows, rows + 1]).long(),
+                   torch.cat([upd0, upd1], dim=1), (4 * g.shape[0], n_rows))
+            del upd0, upd1
+            return _check_accumulate(torch, name, B2.dense_accumulate_cm,
+                                     B2.dense_accumulate_cm_plain, args, lib,
+                                     16 * g.shape[0] * rows.numel(), path)
+        rows, delta, w8t, g, n_rows = args
+        idx, upd = B56.tap_updates(rows, delta, w8t, g)
+        lib = ((rows[None, :] + delta).reshape(-1), idx, upd, (4, n_rows))
+        return _check_accumulate(torch, name, B56.tap_dense_accumulate_cm,
+                                 B56.tap_dense_accumulate_cm_plain, args, lib,
+                                 16 * delta.numel(), path)
+
+    def check_all(calls, suffix=""):
+        out = {}
+        for name in list(calls):
+            for args in calls[name]:
+                r = check(name, args, label(name, args) + suffix)
+                out.setdefault(name, []).append(r)
+                print(json.dumps({"kernel": name, **r, "card": card}))
+            del calls[name]
+            torch.cuda.empty_cache()
+        return out
+
+    # ---- 5. fine kernel checks on the main path's own inputs ------------
+    calls = {}
+    with record(sites, calls):
+        loss_and_grads(params0, {}, *batch, s_val, 1.0)
+    torch.cuda.synchronize()
+    _check({n: len(v) for n, v in calls.items()} == {n: 2 for n in sites},
+           {n: len(v) for n, v in calls.items()})
+    fine_calls = check_all(calls)
+
+    def counts():
+        return {n: k.launches[n] for n, (_, k) in sites.items()}
+
+    def zero_counts():
+        for _, k in sites.values():
+            for fn in k.launches:
+                k.launches[fn] = 0
+
+    # ---- 6. fine main path ----------------------------------------------
+    zero_counts()
+    params, opt_state = params0, init_state(params0)
+    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(N_WARMUP + N_FINE_STEPS):
+        if i == N_WARMUP:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, {}, *batch,
+                                          s_val, lrs, 1.0)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t_start) / N_FINE_STEPS
+    launches = counts()
+    losses = [float(x) for x in losses]
+    print(json.dumps({
+        "metric": "train_rays_per_s_fine", "value": n_rand / dt,
+        "step_ms": dt * 1e3, "steps": N_FINE_STEPS, "card": card,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "losses": losses, "launches": launches,
+        "metrics": {k: float(v) for k, v in metrics.items()},
+    }))
+    _check(all(np.isfinite(losses)), losses)
+    _check(losses[-1] < losses[0], f"fine loss did not fall: {losses}")
+    for name, n in launches.items():
+        _check(n == 2 * (N_WARMUP + N_FINE_STEPS),
+               f"{name}: {n} launches on the fine path, 2 per step expected")
+    _device_breakdown(torch, lambda: step(params, opt_state, {}, *batch,
+                                          s_val, lrs, 1.0), dt * 1e3, card,
+                      path="fine")
+
+    # ---- 7. masked traffic ----------------------------------------------
+    band = torch.where(params0["sdf"].abs() < 0.3, 1e-3, 0.0)
+    buffers = {"mask_cache": M.build_mask_cache(band, xyz_min, xyz_max)}
+    zero_counts()
+    p_m, o_m = params0, init_state(params0)
+    calls = {}
+    with record(("dense_accumulate_cm", "tap_dense_accumulate_cm"), calls):
+        p_m, o_m, met1 = step(p_m, o_m, buffers, *batch, s_val, lrs, 1.0)
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    p_m, o_m, met2 = step(p_m, o_m, buffers, *batch, s_val, lrs, 1.0)
+    torch.cuda.synchronize()
+    dt_m = time.perf_counter() - t_start
+    masked_launches = counts()
+    print(json.dumps({
+        "metric": "train_rays_per_s_fine_masked", "value": n_rand / dt_m,
+        "step_ms": dt_m * 1e3, "card": card,
+        "losses": [float(met1["loss"]), float(met2["loss"])],
+        "launches": masked_launches,
+        "metrics": {k: float(v) for k, v in met2.items()}}))
+    _check(np.isfinite(float(met1["loss"])) and np.isfinite(float(met2["loss"])),
+           "masked fine loss is not finite")
+    for name, n in masked_launches.items():
+        _check(n == 4, f"{name}: {n} launches in two masked fine steps")
+    for name, rs in check_all(calls, " masked").items():
+        fine_calls[name] += rs
+    del p_m, o_m, buffers, band
+    torch.cuda.empty_cache()
+
+    # ---- 8. fine kernel path against plain path ---------------------------
+    report = _step_vs_plain(torch, loss_and_grads, step, (params, opt_state),
+                            {}, batch, s_val, lrs,
+                            _plain_twins(ST, FS, B1, B2, B56))
+    print(json.dumps({"fine_kernel_vs_plain_step": report, "card": card}))
+    return fine_calls, launches, masked_launches
 
 
 def main():
@@ -162,6 +522,7 @@ def main():
     from fgs_nerf_tpu_torch.ops.cuda import build
     from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
     from fgs_nerf_tpu_torch.ops.cuda import scatter_combine_cm as B2
+    from fgs_nerf_tpu_torch.ops.cuda import tap_serve_cm as B56
     from fgs_nerf_tpu_torch.ops.cuda import window_gather_cm as B1
     from fgs_nerf_tpu_torch.optim.masked_adam import ParamOpts, init_state
     from fgs_nerf_tpu_torch.train.losses import LossWeights
@@ -173,7 +534,7 @@ def main():
     t0 = time.perf_counter()
 
     # ---- 1. build ------------------------------------------------------
-    kernels = (B1.KERNEL, B2.KERNEL, FS.KERNEL)
+    kernels = (B1.KERNEL, B2.KERNEL, FS.KERNEL, B56.KERNEL)
     build.build_all(kernels)
     print(f"build: {time.perf_counter() - t0:.1f} s")
     for k in kernels:
@@ -234,30 +595,20 @@ def main():
     # ---- 2. kernel checks on the main path's own inputs -----------------
     captured = {}
 
-    def clone(a):
-        if isinstance(a, torch.Tensor):
-            return a.detach().clone()
-        if isinstance(a, (list, tuple)):
-            return type(a)(clone(x) for x in a)
-        return a
-
     def recorder(key, fn):
         def rec(*args):
-            captured.setdefault(key, clone(args))
+            captured.setdefault(key, _clone(args, torch))
             return fn(*args)
         return rec
 
-    saved = (ST.window_gather_cm, ST.dense_accumulate_cm,
-             FS.fused_shade_cm_fwd, FS.fused_shade_cm_bwd)
-    ST.window_gather_cm = recorder("b1", saved[0])
-    ST.dense_accumulate_cm = recorder("b2", saved[1])
-    FS.fused_shade_cm_fwd = recorder("b3", saved[2])
-    FS.fused_shade_cm_bwd = recorder("b4", saved[3])
-    try:
+    with _patched([(ST, "window_gather_cm", recorder("b1", ST.window_gather_cm)),
+                   (ST, "dense_accumulate_cm",
+                    recorder("b2", ST.dense_accumulate_cm)),
+                   (FS, "fused_shade_cm_fwd",
+                    recorder("b3", FS.fused_shade_cm_fwd)),
+                   (FS, "fused_shade_cm_bwd",
+                    recorder("b4", FS.fused_shade_cm_bwd))]):
         loss_and_grads(params0, {}, *batch, s_val, 1.0)
-    finally:
-        (ST.window_gather_cm, ST.dense_accumulate_cm,
-         FS.fused_shade_cm_fwd, FS.fused_shade_cm_bwd) = saved
     torch.cuda.synchronize()
     _check(set(captured) == {"b1", "b2", "b3", "b4"}, sorted(captured))
 
@@ -411,69 +762,56 @@ def main():
                                           s_val, lrs, 1.0), dt * 1e3, card)
 
     # ---- 4. kernel path against plain path -------------------------------
-    @contextlib.contextmanager
-    def plain_twins():
-        ST.window_gather_cm = B1.window_gather_cm_plain
-        ST.dense_accumulate_cm = B2.dense_accumulate_cm_plain
-        FS.fused_shade_cm_fwd = FS.fused_shade_cm_fwd_plain
-        FS.fused_shade_cm_bwd = FS.fused_shade_cm_bwd_plain
-        try:
-            yield
-        finally:
-            (ST.window_gather_cm, ST.dense_accumulate_cm,
-             FS.fused_shade_cm_fwd, FS.fused_shade_cm_bwd) = saved
-
-    state = (params, opt_state)
-    _, lk, gk = loss_and_grads(params, {}, *batch, s_val, 1.0)
-    pk, _, _ = step(*state, {}, *batch, s_val, lrs, 1.0)
-    with plain_twins():
-        _, lp, gp = loss_and_grads(params, {}, *batch, s_val, 1.0)
-        pp, _, _ = step(*state, {}, *batch, s_val, lrs, 1.0)
-    report = {"loss_kernel": float(lk["loss"].detach()),
-              "loss_plain": float(lp["loss"].detach())}
-    _check(abs(report["loss_kernel"] - report["loss_plain"])
-           <= 1e-4 * abs(report["loss_plain"]), report)
-
-    def leaves(tree, prefix=""):
-        for key, v in tree.items():
-            if isinstance(v, dict):
-                yield from leaves(v, prefix + key + ".")
-            else:
-                yield prefix + key, v
-
-    gp_l, pk_l, pp_l = dict(leaves(gp)), dict(leaves(pk)), dict(leaves(pp))
-    for name, a in leaves(gk):
-        b = gp_l[name]
-        if name == "s_val":
-            continue
-        rel = _rel_l2(a, b)
-        report[f"grad_rel_l2.{name}"] = rel
-        _check(rel < 1e-2, (name, rel))
-        clear = b.abs() > 1e-5
-        if bool(clear.any()):
-            d = float((pk_l[name] - pp_l[name])[clear].abs().max())
-            report[f"post_adam_max_abs.{name}"] = d
-            _check(d < 1e-4, (name, d))
+    twins = _plain_twins(ST, FS, B1, B2, B56)
+    report = _step_vs_plain(torch, loss_and_grads, step, (params, opt_state),
+                            {}, batch, s_val, lrs, twins)
     print(json.dumps({"kernel_vs_plain_step": report}))
+    del params, opt_state, params0, report
+    torch.cuda.empty_cache()
+    coarse_launches = launches
 
+    # ---- 5.-8. the fine stage ------------------------------------------
+    fine_calls, fine_launches, masked_launches = _fine_phases(
+        torch, np, card, dev, batch, n_rand)
+
+    coarse_calls = {name: [dict(path="coarse", max_abs_err=r["max_abs_err"],
+                                ms=r["ms"], plain_ms=r["plain_ms"],
+                                bound_ms=r["bound"][0], bound_by=r["bound"][1],
+                                library_ms=r["library_ms"])]
+                    for name, r in results.items()}
     rows_out = []
-    for name, src, replaces in (
-        ("window_gather_cm", B1.KERNEL.source_rel,
-         "fgs_nerf_tpu/ops/pallas/window_gather_cm.py:156"),
-        ("dense_accumulate_cm", B2.KERNEL.source_rel,
-         "fgs_nerf_tpu/ops/pallas/scatter_combine_cm.py:182"),
-        ("fused_shade_cm_fwd", FS.KERNEL.source_rel,
-         "fgs_nerf_tpu/ops/pallas/fused_mlp_cm.py:587"),
-        ("fused_shade_cm_bwd", FS.KERNEL.source_rel,
-         "fgs_nerf_tpu/ops/pallas/fused_mlp_cm.py:620"),
+    for name, kern, replaces, main_call in (
+        ("window_gather_cm", B1.KERNEL,
+         "fgs_nerf_tpu/ops/pallas/window_gather_cm.py:156", "fine pass 1"),
+        ("dense_accumulate_cm", B2.KERNEL,
+         "fgs_nerf_tpu/ops/pallas/scatter_combine_cm.py:182", "fine pass 1"),
+        ("fused_shade_cm_fwd", FS.KERNEL,
+         "fgs_nerf_tpu/ops/pallas/fused_mlp_cm.py:587", "coarse"),
+        ("fused_shade_cm_bwd", FS.KERNEL,
+         "fgs_nerf_tpu/ops/pallas/fused_mlp_cm.py:620", "coarse"),
+        ("tap_window_serve_cm", B56.KERNEL,
+         "fgs_nerf_tpu/ops/pallas/tap_serve_cm.py:158", "fine z/y taps"),
+        ("tap_dense_accumulate_cm", B56.KERNEL,
+         "fgs_nerf_tpu/ops/pallas/tap_serve_cm.py:358", "fine z/y taps"),
     ):
-        r = results[name]
+        calls = coarse_calls.get(name, []) + fine_calls.get(name, [])
+        main = next(c for c in calls if c["path"] == main_call)
+        by_path = {"coarse": coarse_launches.get(name, 0),
+                   "fine": fine_launches.get(name, 0),
+                   "fine_masked": masked_launches.get(name, 0)}
         rows_out.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-            "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+            "name": name, "route": "cuda", "source": kern.source_rel,
+            "replaces": replaces,
+            "launches": by_path["fine" if name in fine_launches else "coarse"],
+            "max_abs_err": max(c["max_abs_err"] for c in calls),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "timed_call": main_call,
+            "launches_by_path": by_path,
+            "launches_per_step": {
+                "coarse": by_path["coarse"] / (N_WARMUP + N_STEPS),
+                "fine": by_path["fine"] / (N_WARMUP + N_FINE_STEPS)},
+            "calls": calls,
         })
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(card)

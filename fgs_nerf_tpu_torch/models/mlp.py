@@ -1,6 +1,8 @@
 """MLP parameter dicts with torch-Linear-compatible init.
 
-Port of ``fgs_nerf_tpu/models/mlp.py:17-78``: parameters are flat dicts
+Port of ``fgs_nerf_tpu/models/mlp.py:17-78`` (init and layer sizes; the
+channel-major application is ``models/sdf_voxel.py:_mlp_apply_cm``):
+parameters are flat dicts
 ``{'w0': [in, out], 'b0': [out], ...}`` drawn from
 U(-1/sqrt(fan_in), 1/sqrt(fan_in)).  Randomness comes from a
 ``torch.Generator`` (its numbers differ from ``jax.random``; the parity
@@ -31,3 +33,9 @@ def refnet_dims(d_in: int, width: int, depth: int) -> list:
     """Linear(d,W) + (depth-2) x Linear(W,W) + Linear(W,3)
     (`models/mlp.py:69-72`)."""
     return [d_in] + [width] * (depth - 1) + [3]
+
+
+def rgbnet_dims(d_in: int, width: int, depth: int) -> list:
+    """The same stack with a ``width``-feature head instead of RGB
+    (`models/mlp.py:75-78`)."""
+    return [d_in] + [width] * (depth - 1) + [width]

@@ -1,17 +1,19 @@
-"""The SDF voxel renderer, coarse stage on the sorted channel-major engine.
+"""The SDF voxel renderer on the sorted channel-major engine.
 
 Port of the parts of ``fgs_nerf_tpu/models/sdf_voxel.py`` that the
-coarse sorted-engine train step runs: the config (``:62-233``),
-parameter construction (``:241-297``), the mask machinery
-(``:337-431``), ``_compact_valid`` (``:535-554``), the channel-major
-shading head (``:980-1067``) and ``forward_coarse_sorted``
-(``:1445-1633``).  The lattice engine and the fine stage are not ported
-yet: ``forward`` raises ``NotImplementedError`` for them.
+sorted-engine train steps run: the config (``:62-233``), parameter
+construction (``:241-297``), the mask machinery (``:337-431``),
+``_compact_valid`` / ``_topk_select`` / ``_gather_slots``
+(``:535-606``), the channel-major shading heads (``:980-1067``,
+``:1412-1442``), ``forward_fine_sorted`` (``:1070-1409``) and
+``forward_coarse_sorted`` (``:1445-1633``).  The lattice engine is not
+ported yet: ``forward`` raises ``NotImplementedError`` for it.
 
 Parameters are a flat dict with the JAX package's names and layouts:
   sdf    [X, Y, Z, 1]
   k0     [X, Y, Z, k0_dim]
   refnet {w0 [in, out], b0 [out], ...}
+  rgbnet {w0 [in, out], b0 [out], ...}   (fine stage only)
   s_val  [1]
 """
 from __future__ import annotations
@@ -26,14 +28,15 @@ import torch.utils.checkpoint
 
 from fgs_nerf_tpu_torch.core.box import SceneBox, grid_resolution, max_samples_per_ray
 from fgs_nerf_tpu_torch.device import DeviceLike, resolve_device
-from fgs_nerf_tpu_torch.models.mlp import init_mlp, refnet_dims
+from fgs_nerf_tpu_torch.models.mlp import init_mlp, refnet_dims, rgbnet_dims
 from fgs_nerf_tpu_torch.ops.cuda.fused_shade_cm import bf16_round, fused_shade_cm
 from fgs_nerf_tpu_torch.ops.encoding import freq_bank
 from fgs_nerf_tpu_torch.ops.ray_sample import ray_box_intersect
 from fgs_nerf_tpu_torch.ops.sdf2alpha import neus_alpha_from_cos
 from fgs_nerf_tpu_torch.ops.sorted_cm import (
-    corner_weights_cm, pack_gather_sorted_cm, padded_rows_cm, rows_fracs_cm,
-    rows_to_coords_cm, sort_stream, unsort_channels,
+    corner_weights_cm, pack_gather_sorted_cm, padded_rows_cm, resort_channels,
+    rows_fracs_cm, rows_to_coords_cm, sort_stream, tap_bounds,
+    tap_deltas_weights, tap_gather_sorted_cm, unsort_channels,
 )
 from fgs_nerf_tpu_torch.ops.stencils import sdf_gradient_cm, smooth_grid
 from fgs_nerf_tpu_torch.ops.transmittance import alpha_to_weights
@@ -91,12 +94,36 @@ class SDFModelConfig:
         return self.stage == "fine"
 
     @property
+    def voxel_size_ratio(self) -> float:
+        return self.voxel_size / self.voxel_size_base
+
+    @property
     def step_dist(self) -> float:
         return self.stepsize * self.voxel_size
 
     @property
     def smooth_sdf(self) -> bool:
         return self.smooth_ksize > 0
+
+    @property
+    def all_displace(self) -> Tuple[float, ...]:
+        """sorted(set(grad_feat | k_grad_feat)); the grad and sdf
+        displacement sets must match (`sdf_voxel.py:142-150`)."""
+        inds = tuple(sorted(set(self.grad_feat) | set(self.k_grad_feat)))
+        sdf_inds = tuple(sorted(set(self.sdf_feat) | set(self.k_sdf_feat)))
+        if inds != sdf_inds:
+            raise ValueError("grad_feat/sdf_feat displacement sets must match")
+        return inds
+
+    def rgbnet_in_dim(self) -> int:
+        """`sdf_voxel.py:152-160`."""
+        d = (3 + 3 * self.posbase_pe * 2) + self.k0_dim + 3
+        d += len(self.grad_feat) * 3 + len(self.sdf_feat) * 6
+        if self.center_sdf:
+            d += 1
+        if self.use_viewdir:
+            d += 3 + 3 * self.viewbase_pe * 2
+        return d
 
     def refnet_in_dim(self) -> int:
         """`sdf_voxel.py:162-171`."""
@@ -160,14 +187,12 @@ def ball_init_sdf(world_size, stage: str, device: DeviceLike = None) -> torch.Te
 
 def init_params(generator: torch.Generator, cfg: SDFModelConfig,
                 device: DeviceLike = None) -> Dict[str, Any]:
-    """Coarse-stage parameters (`sdf_voxel.py:252-276`), dense k0 only.
-    ``generator`` must live on ``device``."""
+    """Stage parameters (`sdf_voxel.py:252-276`), dense k0 only; the fine
+    stage adds ``rgbnet``.  ``generator`` must live on ``device``."""
     dev = resolve_device(device)
     if cfg.grid_type != "dense":
         raise NotImplementedError(f"grid_type {cfg.grid_type!r} is not ported")
-    if cfg.is_fine:
-        raise NotImplementedError("the fine stage is not ported")
-    return {
+    params = {
         "sdf": ball_init_sdf(cfg.world_size, cfg.stage, dev),
         "k0": torch.zeros((*cfg.world_size, cfg.k0_dim), dtype=torch.float32,
                           device=dev),
@@ -178,6 +203,13 @@ def init_params(generator: torch.Generator, cfg: SDFModelConfig,
         ),
         "s_val": torch.full((1,), cfg.s_start, dtype=torch.float32, device=dev),
     }
+    if cfg.is_fine:
+        params["rgbnet"] = init_mlp(
+            generator,
+            rgbnet_dims(cfg.rgbnet_in_dim(), cfg.rgbnet_width, cfg.rgbnet_depth),
+            dev,
+        )
+    return params
 
 
 def k0_dense(params: Dict[str, Any], cfg: SDFModelConfig) -> torch.Tensor:
@@ -269,6 +301,23 @@ def _compact_valid(valid: torch.Tensor, k: int):
     return new_valid, order.to(torch.float32), overflow
 
 
+def _topk_select(weights: torch.Tensor, live: torch.Tensor, k: int):
+    """Per-ray top-``k`` slots by weight (`sdf_voxel.py:568-573`).
+    ``lax.top_k`` puts the lower index first among equal scores; a
+    stable descending sort does the same (``torch.topk`` leaves the order
+    of ties open).  Returns (idx [N, k] int64, sel_live [N, k])."""
+    score = torch.where(live, weights, torch.full_like(weights, -1.0))
+    vals, idx = torch.sort(score, dim=-1, descending=True, stable=True)
+    return idx[:, :k], vals[:, :k] > 0.0
+
+
+def _gather_slots(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """take_along_axis over the sample axis (`sdf_voxel.py:576-606`; the
+    JAX package writes it as a one-hot matmul only because the TPU lacks
+    a fast gather)."""
+    return torch.gather(x, 1, idx)
+
+
 def _mlp_apply_cm(mlp_params, blocks, bf16: bool) -> torch.Tensor:
     """Channel-major MLP over concatenated feature row blocks
     (`sdf_voxel.py:1037-1067`): ``w.T @ x + b``, ReLU between layers.
@@ -319,30 +368,314 @@ def _shade_coarse_cm(params, cfg: SDFModelConfig, rays_xyz, vd, normal, k0):
             cfg.posbase_pe, cfg.refbase_pe, cfg.viewbase_pe,
         )
     else:
-        def enc(parts, n_freq):
-            x3 = torch.stack(parts, dim=0)
-            freqs = freq_bank(n_freq, x3.device)
-            xf = (x3[:, None, :] * freqs[None, :, None]).reshape(-1, x3.shape[-1])
-            return torch.cat([x3, torch.sin(xf), torch.cos(xf)], dim=0)
-
-        feats = [k0, enc(rays_xyz, cfg.posbase_pe), enc(refl, cfg.refbase_pe),
-                 torch.stack(normal, dim=0)]
+        feats = [k0, _enc_cm(rays_xyz, cfg.posbase_pe),
+                 _enc_cm(refl, cfg.refbase_pe), torch.stack(normal, dim=0)]
         if cfg.use_viewdir:
-            feats.append(enc(vd, cfg.viewbase_pe))
+            feats.append(_enc_cm(vd, cfg.viewbase_pe))
         out = _mlp_apply_cm(params["refnet"], feats, bf16=cfg.mlp_bf16)
+    return torch.sigmoid(out)  # [3, M]
+
+
+def _enc_cm(parts, n_freq: int) -> torch.Tensor:
+    """Channel-major sincos encoding of three [M] rows:
+    [x3 | sin(x3 * f) | cos(x3 * f)], rows axis-major then frequency."""
+    x3 = torch.stack(parts, dim=0)
+    freqs = freq_bank(n_freq, x3.device)
+    xf = (x3[:, None, :] * freqs[None, :, None]).reshape(-1, x3.shape[-1])
+    return torch.cat([x3, torch.sin(xf), torch.cos(xf)], dim=0)
+
+
+def _shade_fine_cm(params, cfg: SDFModelConfig, rays_xyz, vd, normal, sdf, k0,
+                   all_feat_rows, grad_rows, grad_xyz) -> torch.Tensor:
+    """The fine shading head over a channel-major stream
+    (`sdf_voxel.py:1412-1442`): rgbnet over the feature row blocks in the
+    lattice head's concat order, then refnet over [rgb_feat | reflection
+    encoding]; plain matmuls, as in the JAX package."""
+    feats = [k0, _enc_cm(rays_xyz, cfg.posbase_pe)]
+    if cfg.use_viewdir:
+        feats.append(_enc_cm(vd, cfg.viewbase_pe))
+    if cfg.center_sdf:
+        feats.append(sdf[None])
+    feats.append(torch.stack(all_feat_rows, dim=0))
+    feats.append(torch.stack(grad_rows, dim=0))
+    feats.append(torch.stack(grad_xyz, dim=0))
+    rgb_feat = _mlp_apply_cm(params["rgbnet"], feats, bf16=cfg.mlp_bf16)
+
+    nx, ny, nz = normal
+    vx, vy, vz = vd
+    dot2 = 2.0 * (vx * nx + vy * ny + vz * nz)
+    refl = (vx - dot2 * nx, vy - dot2 * ny, vz - dot2 * nz)
+    out = _mlp_apply_cm(params["refnet"],
+                        [rgb_feat, _enc_cm(refl, cfg.refbase_pe)],
+                        bf16=cfg.mlp_bf16)
     return torch.sigmoid(out)  # [3, M]
 
 
 def forward(params, buffers, cfg: SDFModelConfig, box: SceneBox, rays_o,
             rays_d, viewdirs, s_val, near: float, bg: float):
-    """Render dispatch (`sdf_voxel.py:608-641`); only the coarse sorted
-    engine is ported."""
-    if cfg.is_fine:
-        raise NotImplementedError("the fine stage is not ported yet")
-    if cfg.engine != "sorted":
+    """Render dispatch (`sdf_voxel.py:608-641`); only the sorted engine
+    is ported (the fine stage takes it when its displacements include
+    1.0, as in the JAX package)."""
+    if cfg.engine != "sorted" or (
+            cfg.is_fine and not (cfg.all_displace and 1.0 in cfg.all_displace)):
         raise NotImplementedError("the lattice engine is not ported yet")
-    return forward_coarse_sorted(params, buffers, cfg, box, rays_o, rays_d,
-                                 viewdirs, s_val, near, bg)
+    fwd = forward_fine_sorted if cfg.is_fine else forward_coarse_sorted
+    return fwd(params, buffers, cfg, box, rays_o, rays_d, viewdirs, s_val,
+               near, bg)
+
+
+def _lattice(cfg: SDFModelConfig, box: SceneBox, rays_o, rays_d, near: float):
+    """The per-ray sample lattice of the sorted engines
+    (`sdf_voxel.py:1117-1137`, `:1465-1489`): (axes_at, steps0, lattice
+    points (px, py, pz), valid); ``axes_at(steps)`` recomputes points at
+    any step ids with the same expressions."""
+    n = rays_o.shape[0]
+    t_min, t_max = ray_box_intersect(rays_o, rays_d, box, near, 1e9)
+    d_norm = torch.sqrt(torch.sum(rays_d * rays_d, dim=-1))
+    n_steps = torch.clamp(
+        torch.ceil((t_max - t_min) * d_norm / cfg.step_dist), min=1.0
+    ).to(torch.int32)
+    start = rays_o + rays_d * t_min[..., None]
+    dir_unit = rays_d / d_norm[..., None]
+    step_ids = torch.arange(cfg.s_max, dtype=torch.float32,
+                            device=rays_o.device)
+
+    def axes_at(steps):
+        d_ = steps * cfg.step_dist
+        return tuple(start[:, a:a + 1] + dir_unit[:, a:a + 1] * d_
+                     for a in range(3))
+
+    steps0 = step_ids[None, :].expand(n, cfg.s_max)
+    pts = axes_at(steps0)
+    valid = step_ids[None, :] < n_steps[:, None].to(torch.float32)
+    for a, p in enumerate(pts):
+        valid = valid & (p >= box.xyz_min[a]) & (p <= box.xyz_max[a])
+    return axes_at, steps0, pts, valid
+
+
+def _index_coords(cfg: SDFModelConfig, box: SceneBox, px, py, pz):
+    """World points -> per-axis grid index coordinates."""
+    sizes, ext = cfg.world_size, box.extent
+    return tuple((p - box.xyz_min[a]) / ext[a] * (sizes[a] - 1.0)
+                 for a, p in enumerate((px, py, pz)))
+
+
+def _normalize_grad(gx, gy, gz):
+    """Unit normal of an SDF gradient with the reference's two guards
+    (`sdf_voxel.py:1196-1202`, `:1354-1359`)."""
+    gn = torch.sqrt(torch.clamp(gx * gx + gy * gy + gz * gz, min=1e-24)) + 1e-7
+    hx, hy, hz = gx / gn, gy / gn, gz / gn
+    hn = torch.sqrt(torch.clamp(hx * hx + hy * hy + hz * hz,
+                                min=float(np.finfo(np.float32).eps)))
+    return hx / hn, hy / hn, hz / hn
+
+
+def forward_fine_sorted(params, buffers, cfg: SDFModelConfig, box: SceneBox,
+                        rays_o, rays_d, viewdirs, s_val, near: float,
+                        bg: float) -> Dict[str, torch.Tensor]:
+    """Fine render on the row-sorted channel-major stream, in two sorted
+    passes (`sdf_voxel.py:1070-1409`).
+
+    Pass 1 (the compacted lattice): one stable sort by grid row, the
+    fused ``[sdf | grad | k0]`` serve (B1, backward B2), alpha and n.v in
+    sorted order, then the ray-major scan.  Pass 2 (the top-``shade_k``
+    selection per ray): a second serve for sdf and k0, the exact
+    hierarchical taps (B5, backward B6) — z/y taps on the z-minor sort,
+    x taps on an x-minor sort of the transposed grid — the finite
+    differences, rgbnet -> refnet shading, and three rgb channels back to
+    ray order for compositing."""
+    n = rays_o.shape[0]
+    dist = cfg.step_dist
+    sizes = cfg.world_size
+
+    # ---- pass 1: lattice, mask cache (any stage), compaction ----------
+    axes_at, steps0, (px, py, pz), valid = _lattice(cfg, box, rays_o, rays_d,
+                                                    near)
+    if "mask_cache" in buffers:
+        valid = valid & mask_cache_query(buffers["mask_cache"],
+                                         torch.stack([px, py, pz], dim=-1),
+                                         cfg.mask_cache_thres)
+    if 0 < cfg.sample_k < cfg.s_max:
+        valid, steps, sample_overflow = _compact_valid(valid, cfg.sample_k)
+        px, py, pz = axes_at(steps)
+    else:
+        steps = steps0
+        sample_overflow = torch.zeros((n,), dtype=torch.bool,
+                                      device=rays_o.device)
+    s = valid.shape[-1]
+    m = n * s
+
+    # ---- field, channel-major; the gradient comes from the (possibly
+    # smoothed) grid the taps sample -----------------------------------
+    sdf_grid = params["sdf"]
+    if cfg.smooth_sdf:
+        sdf_grid = smooth_grid(sdf_grid, cfg.smooth_ksize, cfg.smooth_sigma)
+    sdf3 = sdf_grid[..., 0]
+    grad_cm = sdf_gradient_cm(sdf3, cfg.voxel_size, cfg.grad_mode)
+    k0_cm = k0_dense(params, cfg).permute(3, 0, 1, 2)
+    field_cm = torch.cat([sdf3[None], grad_cm, k0_cm], dim=0)
+
+    rows, (fx, fy, fz), ok = rows_fracs_cm(*_index_coords(cfg, box, px, py, pz),
+                                           sizes)
+    r_sent = padded_rows_cm(sizes)
+    keys = torch.where(valid & ok, rows, torch.full_like(rows, r_sent)).reshape(m)
+    vds = [viewdirs[:, a:a + 1].expand(n, s).reshape(m) for a in range(3)]
+    keys_s, iota_s, fx_s, fy_s, fz_s, vx_s, vy_s, vz_s = sort_stream(
+        keys, fx.reshape(m), fy.reshape(m), fz.reshape(m), *vds,
+        pack16=cfg.sort_pack16,
+    )
+    samp = pack_gather_sorted_cm(field_cm, keys_s,
+                                 corner_weights_cm(fx_s, fy_s, fz_s))
+    sdf_s = samp[0]
+    gx, gy, gz = samp[1], samp[2], samp[3]
+    true_cos = vx_s * gx + vy_s * gy + vz_s * gz
+    alpha_s = neus_alpha_from_cos(true_cos, sdf_s, dist, s_val)
+    nx, ny, nz = _normalize_grad(gx, gy, gz)
+    ndv_s = -(nx * vx_s + ny * vy_s + nz * vz_s)
+    unsorted = unsort_channels(iota_s, torch.stack([alpha_s, ndv_s]))
+    alpha = unsorted[0].reshape(n, s)
+    ndv = unsorted[1].reshape(n, s)
+
+    # fine tail: alpha threshold -> one scan -> weight threshold
+    if cfg.fast_color_thres > 0:
+        m1 = valid & (alpha > cfg.fast_color_thres)
+    else:
+        m1 = valid
+    weights, alphainv_last = alpha_to_weights(alpha, m1)
+    if cfg.fast_color_thres > 0:
+        live = m1 & (weights > cfg.fast_color_thres)
+    else:
+        live = m1
+    w_eff = weights * live
+
+    # ---- shade selection (ray-major) ----------------------------------
+    if cfg.shade_k > 0:
+        idx, sel_live = _topk_select(weights, live, cfg.shade_k)
+        steps_sel = _gather_slots(steps, idx)
+        s_weights = _gather_slots(weights, idx) * sel_live
+        overflow = torch.sum(live, dim=-1) > cfg.shade_k
+        k = cfg.shade_k
+    else:
+        steps_sel, sel_live, s_weights = steps, live, w_eff
+        overflow = torch.zeros((n,), dtype=torch.bool, device=rays_o.device)
+        k = s
+
+    # ---- pass 2: exact taps + shading on the selection (plain f32 sort
+    # payloads) ---------------------------------------------------------
+    m2 = n * k
+    qx, qy, qz = axes_at(steps_sel)
+    ix2, iy2, iz2 = _index_coords(cfg, box, qx, qy, qz)
+    rows2, (fx2, fy2, fz2), ok2 = rows_fracs_cm(ix2, iy2, iz2, sizes)
+    keys2 = torch.where(sel_live & ok2, rows2,
+                        torch.full_like(rows2, r_sent)).reshape(m2)
+    vds2 = [viewdirs[:, a:a + 1].expand(n, k).reshape(m2) for a in range(3)]
+    keys2_s, iota2_s, fx2_s, fy2_s, fz2_s, vx2_s, vy2_s, vz2_s = sort_stream(
+        keys2, fx2.reshape(m2), fy2.reshape(m2), fz2.reshape(m2), *vds2,
+        pack16=False)
+    samp2 = pack_gather_sorted_cm(field_cm, keys2_s,
+                                  corner_weights_cm(fx2_s, fy2_s, fz2_s))
+    sdf2_s = samp2[0]
+    k02_s = samp2[4:]
+
+    b0, b1, b2 = rows_to_coords_cm(torch.clamp(keys2_s, max=r_sent - 1), sizes)
+    displace = cfg.all_displace
+    nd = len(displace)
+
+    # z/y taps on the base sort; the tap weights are data
+    mn_zy, mp_zy = tap_bounds(sizes)
+    delta_zy, w8t_zy, _ = tap_deltas_weights(
+        b0, b1, b2, fx2_s, fy2_s, fz2_s, displace, sizes, axes=("z", "y"))
+    taps_zy = tap_gather_sorted_cm(sdf3, keys2_s, delta_zy, w8t_zy.detach(),
+                                   mn_zy, mp_zy)  # [4 nd, M2]: z-, z+, y-, y+
+
+    # x taps: x-minor linearization of the transposed grid
+    sizes_t = (sizes[2], sizes[1], sizes[0])
+    r_sent_x = padded_rows_cm(sizes_t)
+    rows2x, (fz2x, fy2x, fx2x), okx = rows_fracs_cm(iz2, iy2, ix2, sizes_t)
+    keys2x = torch.where(sel_live & okx, rows2x,
+                         torch.full_like(rows2x, r_sent_x)).reshape(m2)
+    keys2x_s, iota2x = torch.sort(keys2x, stable=True)
+    fxx_s, fyx_s, fzx_s = torch.stack(
+        [fx2x.reshape(m2), fy2x.reshape(m2), fz2x.reshape(m2)])[:, iota2x]
+    bx0, bx1, bx2 = rows_to_coords_cm(torch.clamp(keys2x_s, max=r_sent_x - 1),
+                                      sizes_t)
+    delta_x, w8t_x, _ = tap_deltas_weights(
+        bx0, bx1, bx2, fzx_s, fyx_s, fxx_s, displace, sizes_t, axes=("z",))
+    taps_x_xs = tap_gather_sorted_cm(sdf3.permute(2, 1, 0), keys2x_s, delta_x,
+                                     w8t_x.detach(), 4, 5)  # x-, x+ (x order)
+    # x-sorted -> ray-major -> base (z-minor) sorted order
+    taps_x = resort_channels(iota2_s, unsort_channels(iota2x, taps_x_xs))
+
+    # hierarchical features: post-clamp tap distances, finite
+    # differences; grad order (z, y, x), tap order (z-, z+, y-, y+, x-, x+)
+    ic = (b2 - 1.0 + fz2_s, b1 - 1.0 + fy2_s, b0 - 1.0 + fx2_s)
+    size = (sizes[2], sizes[1], sizes[0])
+    all_feat_rows = list(taps_zy.unbind(0)) + list(taps_x.unbind(0))
+
+    def tap_diff(a, di, d):
+        hi = torch.clamp(ic[a] + d, 0.0, size[a] - 1.0)
+        lo = torch.clamp(ic[a] - d, 0.0, size[a] - 1.0)
+        dd = hi - lo
+        dd = torch.where(dd > 0, dd, torch.ones_like(dd))
+        neg = all_feat_rows[(2 * a) * nd + di]
+        pos = all_feat_rows[(2 * a + 1) * nd + di]
+        return (pos - neg) / dd / cfg.voxel_size
+
+    grad_rows = [tap_diff(a, di, d) for a in range(3)
+                 for di, d in enumerate(displace)]
+    if cfg.use_grad_norm:
+        normed = []
+        for di in range(nd):
+            g3 = [grad_rows[a * nd + di] for a in range(3)]
+            norm = torch.sqrt(torch.clamp(
+                g3[0] * g3[0] + g3[1] * g3[1] + g3[2] * g3[2], min=1e-24))
+            normed.extend([g / (norm + 1e-5) for g in g3])
+        grad_rows = [normed[di * 3 + a] for a in range(3) for di in range(nd)]
+
+    # center gradient (displacement 1.0, no grad norm), xyz order: the
+    # `gradient` feature and the reflection normal
+    d1 = displace.index(1.0)
+    gcz, gcy, gcx = (tap_diff(a, d1, 1.0) for a in range(3))
+    normal2 = _normalize_grad(gcx, gcy, gcz)
+    rays_xyz2 = (
+        (b0 - 1.0 + fx2_s) / (sizes[0] - 1.0),
+        (b1 - 1.0 + fy2_s) / (sizes[1] - 1.0),
+        (b2 - 1.0 + fz2_s) / (sizes[2] - 1.0),
+    )
+    rgb_s3 = _shade_fine_cm(params, cfg, rays_xyz2, (vx2_s, vy2_s, vz2_s),
+                            normal2, sdf2_s, k02_s, all_feat_rows, grad_rows,
+                            (gcx, gcy, gcz))
+    rgb_u = unsort_channels(iota2_s, rgb_s3)
+    rgb_ch = tuple(rgb_u[a].reshape(n, k) for a in range(3))
+
+    cum_w = torch.sum(w_eff, dim=-1)
+    comp, comp_sig = [], []
+    for ch in rgb_ch:
+        comp.append(torch.clamp(
+            torch.sum(s_weights * ch, dim=-1) + (1.0 - cum_w) * bg, 0.0, 1.0))
+        comp_sig.append(torch.clamp(
+            torch.sum(s_weights * torch.sigmoid(ch), dim=-1)
+            + (1.0 - cum_w) * bg, 0.0, 1.0))
+    depth = torch.sum(w_eff * steps * dist, dim=-1).detach()
+    return {
+        "rgb_marched": torch.stack(comp, dim=-1),
+        "sigmoid_rgb": torch.stack(comp_sig, dim=-1),
+        "alphainv_cum": alphainv_last,
+        "cum_weights": cum_w[..., None],
+        "depth": depth,
+        "disp": 1.0 / torch.clamp(depth, min=1e-10),
+        "weights": w_eff,
+        "ndv": ndv,
+        "live": live,
+        "valid": valid,
+        "sel_weights": s_weights,
+        "sel_rgb_ch": rgb_ch,
+        "sel_live": sel_live,
+        "overflow": overflow | sample_overflow,
+        "overflow_sample": sample_overflow,
+        "overflow_shade": overflow,
+        "s_val": s_val,
+    }
 
 
 def forward_coarse_sorted(params, buffers, cfg: SDFModelConfig, box: SceneBox,
@@ -357,26 +690,8 @@ def forward_coarse_sorted(params, buffers, cfg: SDFModelConfig, box: SceneBox,
     n = rays_o.shape[0]
     dist = cfg.step_dist
     dev = rays_o.device
-
-    t_min, t_max = ray_box_intersect(rays_o, rays_d, box, near, 1e9)
-    d_norm = torch.sqrt(torch.sum(rays_d * rays_d, dim=-1))
-    n_steps = torch.clamp(
-        torch.ceil((t_max - t_min) * d_norm / cfg.step_dist), min=1.0
-    ).to(torch.int32)
-    start = rays_o + rays_d * t_min[..., None]
-    dir_unit = rays_d / d_norm[..., None]
-    step_ids = torch.arange(cfg.s_max, dtype=torch.float32, device=dev)
-
-    def axes_at(steps):
-        d_ = steps * cfg.step_dist
-        return tuple(start[:, a:a + 1] + dir_unit[:, a:a + 1] * d_
-                     for a in range(3))
-
-    steps0 = step_ids[None, :].expand(n, cfg.s_max)
-    px, py, pz = axes_at(steps0)
-    valid = step_ids[None, :] < n_steps[:, None].to(torch.float32)
-    for a, p in enumerate((px, py, pz)):
-        valid = valid & (p >= box.xyz_min[a]) & (p <= box.xyz_max[a])
+    axes_at, steps0, (px, py, pz), valid = _lattice(cfg, box, rays_o, rays_d,
+                                                    near)
 
     use_mc = cfg.stage == "coarse" and "mask_cache" in buffers
     if use_mc or "inc_lower" in buffers:
@@ -409,11 +724,8 @@ def forward_coarse_sorted(params, buffers, cfg: SDFModelConfig, box: SceneBox,
 
     # ---- keys / sort --------------------------------------------------
     sizes = cfg.world_size
-    ext = box.extent
-    ix = (px - box.xyz_min[0]) / ext[0] * (sizes[0] - 1.0)
-    iy = (py - box.xyz_min[1]) / ext[1] * (sizes[1] - 1.0)
-    iz = (pz - box.xyz_min[2]) / ext[2] * (sizes[2] - 1.0)
-    rows, (fx, fy, fz), ok = rows_fracs_cm(ix, iy, iz, sizes)
+    rows, (fx, fy, fz), ok = rows_fracs_cm(*_index_coords(cfg, box, px, py, pz),
+                                           sizes)
     r_sent = padded_rows_cm(sizes)
     keys = torch.where(valid & ok, rows, torch.full_like(rows, r_sent)).reshape(m)
     vds = [viewdirs[:, a:a + 1].expand(n, s).reshape(m) for a in range(3)]
@@ -430,11 +742,7 @@ def forward_coarse_sorted(params, buffers, cfg: SDFModelConfig, box: SceneBox,
 
     true_cos = vx_s * gx + vy_s * gy + vz_s * gz
     alpha_s = neus_alpha_from_cos(true_cos, sdf_s, dist, s_val)
-    gn = torch.sqrt(torch.clamp(gx * gx + gy * gy + gz * gz, min=1e-24)) + 1e-7
-    hx, hy, hz = gx / gn, gy / gn, gz / gn
-    hn = torch.sqrt(torch.clamp(hx * hx + hy * hy + hz * hz,
-                                min=float(np.finfo(np.float32).eps)))
-    nx, ny, nz = hx / hn, hy / hn, hz / hn
+    nx, ny, nz = _normalize_grad(gx, gy, gz)
     ndv_s = -(nx * vx_s + ny * vy_s + nz * vz_s)
 
     b0, b1, b2 = rows_to_coords_cm(torch.clamp(keys_s, max=r_sent - 1), sizes)

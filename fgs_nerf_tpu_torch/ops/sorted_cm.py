@@ -1,21 +1,28 @@
-"""Channel-major sorted-stream field engine (the coarse base serve).
+"""Channel-major sorted-stream field engine.
 
-Port of ``fgs_nerf_tpu/ops/sorted_cm.py:1-291`` and ``:507-579``: every
-per-sample quantity is a 1-D ``[M]`` tensor or a ``[C, M]`` matrix in
-grid-row order, the field is served from a channel-major half cell pack
-``[4C, Rp]`` (kernel B1, ``ops/cuda/window_gather_cm.py``) and its
-gradient is a deterministic dense accumulate (kernel B2,
-``ops/cuda/scatter_combine_cm.py``) plus a 4-shift combine.  The pack
-stays float32 (the JAX CPU path; its bf16 pack is a TPU-only branch,
-``sorted_cm.py:169-170``).  The fine stage's multi-tap half
-(``sorted_cm.py:294-504``) is not ported yet.
+Port of ``fgs_nerf_tpu/ops/sorted_cm.py``: every per-sample quantity is
+a 1-D ``[M]`` tensor or a ``[C, M]`` matrix in grid-row order, the field
+is served from a channel-major half cell pack ``[4C, Rp]`` (kernel B1,
+``ops/cuda/window_gather_cm.py``) and its gradient is a deterministic
+dense accumulate (kernel B2, ``ops/cuda/scatter_combine_cm.py``) plus a
+4-shift combine.  The fine stage's multi-tap serve (``:294-504``) rides
+the same row space: kernel B5 serves every tap at ``row + delta`` from a
+1-channel half pack and kernel B6 accumulates its gradient
+(``ops/cuda/tap_serve_cm.py``).  Packs and accumulates stay float32
+(the JAX CPU path; its bf16 pack and bf16 flushes are TPU-only
+branches, ``sorted_cm.py:169-170, 256-265, 475-477``).
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
 from fgs_nerf_tpu_torch.ops.cuda.scatter_combine_cm import dense_accumulate_cm
+from fgs_nerf_tpu_torch.ops.cuda.tap_serve_cm import (
+    tap_dense_accumulate_cm, tap_window_serve_cm,
+)
 from fgs_nerf_tpu_torch.ops.cuda.window_gather_cm import window_gather_cm
 
 PACK_BW = 512  # the JAX package's serve window; fixes the pack's padded Rp
@@ -164,6 +171,136 @@ def pack_gather_sorted_cm(field_cm: torch.Tensor, keys_sorted: torch.Tensor,
     return _PackGatherSortedCM.apply(field_cm, keys_sorted, w8_sorted)
 
 
+# ---------------------------------------------------------------------------
+# Multi-tap serve (the fine stage's hierarchical taps)
+# ---------------------------------------------------------------------------
+
+
+def tap_bounds(grid_shape3) -> Tuple[int, int]:
+    """(maxneg, maxpos) row-offset envelope of displacement-<=2 taps in
+    the z-minor row space (`sorted_cm.py:299-304`)."""
+    zp = z_stride(grid_shape3[2])
+    return 3 * zp + 4, 2 * zp + 4
+
+
+def tap_deltas_weights(b0, b1, b2, fx, fy, fz, displace, grid_shape3,
+                       axes=("z", "y")):
+    """Per-tap row offsets, (t, d, k2)-packed corner weights and the
+    post-clamp displaced coordinate of each axis tap
+    (`sorted_cm.py:307-376`).  Taps run (axis-, axis+) per axis, then
+    displacement; x taps come from a call on the transposed grid with
+    ``axes=('z',)``.  Every expression keeps the JAX order (the clamp
+    before the floor, ``(i0 + 1) - b``), so the results are bit-equal.
+    Returns (delta [T, M] int32, w8t [8T, M], coord [T, M])."""
+    x, y, z = grid_shape3
+    zp = z_stride(z)
+    iy = b1 - 1.0 + fy
+    iz = b2 - 1.0 + fz
+    wx0, wx1 = 1.0 - fx, fx
+    wy0, wy1 = 1.0 - fy, fy
+
+    deltas, w8ts, coords = [], [], []
+
+    def emit(delta, wa0, wa1, wb0, wb1, flerp, coord):
+        deltas.append(delta.to(torch.int32))
+        f0, f1 = 1.0 - flerp, flerp
+        w8ts.extend([
+            f0 * wa0 * wb0, f0 * wa0 * wb1, f0 * wa1 * wb0, f0 * wa1 * wb1,
+            f1 * wa0 * wb0, f1 * wa0 * wb1, f1 * wa1 * wb0, f1 * wa1 * wb1,
+        ])
+        coords.append(coord)
+
+    for axis in axes:
+        for sign in (-1.0, 1.0):
+            for d in displace:
+                if axis == "z":
+                    zt = torch.clamp(iz + sign * d, 0.0, z - 1.0)
+                    i0 = torch.floor(zt)
+                    emit((i0 + 1.0) - b2, wx0, wx1, wy0, wy1, zt - i0, zt)
+                elif axis == "y":
+                    yt = torch.clamp(iy + sign * d, 0.0, y - 1.0)
+                    i0 = torch.floor(yt)
+                    fyt = yt - i0
+                    emit(((i0 + 1.0) - b1) * zp, wx0, wx1, 1.0 - fyt, fyt,
+                         fz, yt)
+                else:
+                    raise ValueError(axis)
+    return (torch.stack(deltas, dim=0), torch.stack(w8ts, dim=0),
+            torch.stack(coords, dim=0))
+
+
+def _tap_bw(maxneg: int, maxpos: int) -> int:
+    """The JAX serve window for the envelope (`sorted_cm.py:411-415`); it
+    fixes the padded pack width."""
+    return max(512, ((maxneg + maxpos + 130 + 127) // 128) * 128)
+
+
+def _tap_geometry(grid_shape3, maxneg: int, maxpos: int):
+    """(r, margin, rp, forward sentinel) of the margined tap row space
+    (`sorted_cm.py:379-386`): real row ``k`` lives at ``k + margin``, so
+    ``row + delta >= 0`` for every delta of the envelope, and the pack is
+    zero past ``margin + r``."""
+    bw = _tap_bw(maxneg, maxpos)
+    r = padded_rows_cm(grid_shape3)
+    margin = ((maxneg + 127) // 128) * 128
+    rp = ((margin + r + maxpos + 2 + bw - 1) // bw) * bw
+    return r, margin, rp, rp - maxpos - 2
+
+
+class _TapGatherSortedCM(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, field3, keys_sorted, delta, w8t, maxneg, maxpos):
+        grid3 = tuple(field3.shape)
+        r, margin, rp, sentinel = _tap_geometry(grid3, maxneg, maxpos)
+        pack = F.pad(build_cell_pack_cm(field3[None], r),
+                     (margin, rp - margin - r))
+        rows = torch.where(keys_sorted < r, keys_sorted + margin,
+                           torch.full_like(keys_sorted, sentinel))
+        ctx.geom = (grid3, maxneg, maxpos)
+        ctx.save_for_backward(keys_sorted, delta, w8t)
+        return tap_window_serve_cm(pack, rows.contiguous(),
+                                   delta.contiguous(), w8t.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        keys_sorted, delta, w8t = ctx.saved_tensors
+        grid3, maxneg, maxpos = ctx.geom
+        x, y, z = grid3
+        zp = z_stride(z)
+        r, margin, _, _ = _tap_geometry(grid3, maxneg, maxpos)
+        cap = margin + r + maxpos + 2
+        # backward sentinel: zero-cotangent deposits parked just past the
+        # real rows, inside the accumulate's row space
+        # (`sorted_cm.py:464-469`)
+        rows = torch.where(keys_sorted < r, keys_sorted + margin,
+                           torch.full_like(keys_sorted, cap - maxpos - 2))
+        dense = tap_dense_accumulate_cm(rows.contiguous(), delta.contiguous(),
+                                        w8t.contiguous(), g.contiguous(), cap)
+        dense = dense[:, margin:margin + r].reshape(4, x + 2, y + 2, zp)
+        dfield = torch.zeros((x, y, z), dtype=torch.float32, device=g.device)
+        for k2, (da, db) in enumerate([(0, 0), (0, 1), (1, 0), (1, 1)]):
+            sa, sb = 1 - da, 1 - db
+            dfield = dfield + dense[k2, sa:sa + x, sb:sb + y, 1:1 + z]
+        return dfield, None, None, None, None, None
+
+
+def tap_gather_sorted_cm(field3: torch.Tensor, keys_sorted: torch.Tensor,
+                         delta: torch.Tensor, w8t: torch.Tensor,
+                         maxneg: int, maxpos: int) -> torch.Tensor:
+    """Multi-tap trilinear serve of a row-sorted stream over a 1-channel
+    grid (`sorted_cm.py:389-504`).
+
+    field3: [X, Y, Z] (transposed for the x-minor pass); keys_sorted: [M]
+    non-decreasing rows (sentinels >= padded_rows_cm serve zeros from the
+    pack's zero tail); delta: [T, M] int32 row offsets inside the
+    (maxneg, maxpos) envelope; w8t: [8T, M] (t, d, k2)-packed weights.
+    Returns [T, M] f32.  The grid cotangent is the multi-tap dense
+    accumulate (B6) plus the 4-shift combine; delta and w8t get none
+    (tap positions are data)."""
+    return _TapGatherSortedCM.apply(field3, keys_sorted, delta, w8t,
+                                    maxneg, maxpos)
+
+
 class _UnsortChannels(torch.autograd.Function):
     @staticmethod
     def forward(ctx, iota_sorted, vals):
@@ -186,3 +323,27 @@ def unsort_channels(iota_sorted: torch.Tensor,
     permutation; its gather is the backward (the JAX package rebuilds
     the same permutation by re-sorting the ray-major keys)."""
     return _UnsortChannels.apply(iota_sorted, vals)
+
+
+class _ResortChannels(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, iota_sorted, vals):
+        idx = iota_sorted.long()
+        ctx.save_for_backward(idx)
+        return vals[:, idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        out = torch.empty_like(g)
+        out[:, idx] = g
+        return None, out
+
+
+def resort_channels(iota_sorted: torch.Tensor,
+                    vals: torch.Tensor) -> torch.Tensor:
+    """Bring ray-major channels [K, M] into the order of a stable key
+    sort, the inverse of ``unsort_channels`` (`sorted_cm.py:545-579`).
+    ``iota_sorted`` is that sort's permutation; the JAX package re-sorts
+    the ray-major keys, which gives the same permutation."""
+    return _ResortChannels.apply(iota_sorted, vals)

@@ -1,7 +1,8 @@
 """Training losses.
 
 Port of ``fgs_nerf_tpu/train/losses.py:19-137`` over the render dict of
-``models.sdf_voxel.forward_coarse_sorted``.
+the sorted engine (``models.sdf_voxel.forward_coarse_sorted`` and
+``forward_fine_sorted``).
 """
 from __future__ import annotations
 

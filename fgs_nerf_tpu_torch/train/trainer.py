@@ -1,9 +1,11 @@
-"""The coarse-stage train step.
+"""The train step of the sorted engine's stages (geometry, coarse, fine).
 
 Port of ``make_train_step`` (``fgs_nerf_tpu/train/trainer.py:117-212``)
 without the dp ``shard_map`` and the spatial ``gather_fn``: one step is
 forward + losses + backward (+ the fine-stage TV injection when asked)
 + masked Adam, with the same arguments and metrics as the JAX step.
+Parameter groups are walked generically, so the fine stage's ``rgbnet``
+needs no special case.
 PyTorch runs eagerly, so the step is a plain function (no jit); it
 returns new parameter and optimizer-state dicts and leaves its inputs
 untouched.

@@ -1,6 +1,7 @@
 """The port imports neither JAX nor the JAX package, and asks for the
 card unless told otherwise."""
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -33,6 +34,7 @@ def test_port_imports_no_jax():
                  "fgs_nerf_tpu_torch.ops.cuda.window_gather_cm",
                  "fgs_nerf_tpu_torch.ops.cuda.scatter_combine_cm",
                  "fgs_nerf_tpu_torch.ops.cuda.fused_shade_cm",
+                 "fgs_nerf_tpu_torch.ops.cuda.tap_serve_cm",
                  "fgs_nerf_tpu_torch.convert"):
         assert name in res["modules"]
 
@@ -52,10 +54,11 @@ def test_entry_points_default_to_the_card():
 
 def test_kernel_sources_and_wrappers():
     from fgs_nerf_tpu_torch.ops.cuda import (
-        fused_shade_cm, scatter_combine_cm, window_gather_cm,
+        fused_shade_cm, scatter_combine_cm, tap_serve_cm, window_gather_cm,
     )
 
-    for mod in (window_gather_cm, scatter_combine_cm, fused_shade_cm):
+    for mod in (window_gather_cm, scatter_combine_cm, fused_shade_cm,
+                tap_serve_cm):
         k = mod.KERNEL
         assert k.source.exists(), k.source
         text = k.source.read_text()
@@ -63,3 +66,23 @@ def test_kernel_sources_and_wrappers():
             assert f'extern "C" int {fn}(' in text
         assert set(k.launches) == set(k.launchers)
         assert k.replaces.startswith("fgs_nerf_tpu/ops/pallas/")
+
+
+def test_card_tests_collect_without_jax(tmp_path):
+    """The card tests run where there is no JAX: with ``jax`` made
+    unimportable and ``--noconftest`` (``tests/conftest.py`` imports JAX),
+    ``tests/test_torch_kernels.py`` collects and, without a card, skips."""
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "jax" / "__init__.py").write_text(
+        "raise ImportError('no JAX on this machine')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(tmp_path), str(REPO), os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q",
+         "-p", "no:cacheprovider", "tests/test_torch_kernels.py"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    import torch
+
+    if not torch.cuda.is_available():
+        assert " skipped" in out.stdout and "error" not in out.stdout

@@ -1,17 +1,17 @@
 """The port's CUDA kernels against their plain PyTorch twins, on the card.
 
 These tests need an NVIDIA card (sm_90a) and ``nvcc``; without a card
-they skip.  Run them on the H100 with
-``python -m pytest tests/test_torch_kernels.py -q``.  The file imports
-no JAX (the machine with the card has none).  The plain twins are what
-the CPU parity tests hold against the JAX package.
+they skip.  The file imports no JAX, but ``tests/conftest.py`` does, so
+on a machine with the card and without JAX run them with
+``python -m pytest --noconftest tests/test_torch_kernels.py -q``.  The
+plain twins are what the CPU parity tests hold against the JAX package.
 
-Tolerances: B1 sums in the plain version's order with IEEE
-multiplies/adds, so it must match bit for bit; B2 adds runs of up to 512
-samples in sample order and matches the plain twin on the CPU bit for
-bit there (longer runs go through block sums: reassociation), while on
-the card the twin's ``index_add_`` adds in any order (a 500-sample run
-of one row reassociates to ~4e-5), 1e-4; B3/B4 share
+Tolerances: B1 and B5 sum in the plain version's order with IEEE
+multiplies/adds, so they must match bit for bit; B2 and B6 add runs of
+up to 512 deposits in the CPU twin's order and match it bit for bit
+there (longer runs go through block sums: reassociation), while on the
+card the twins' ``index_add_`` adds in any order (a 500-sample run of
+one row reassociates to ~4e-5), 1e-4; B3/B4 share
 every bf16 rounding with their twins but sum in another order, so a
 hidden value can land one bf16 ulp away (logits within 1e-2, at most
 1% past 1e-5; cotangents rel L2 1e-3).
@@ -27,6 +27,7 @@ from fgs_nerf_tpu_torch.models import sdf_voxel as M
 from fgs_nerf_tpu_torch.ops import sorted_cm as ST
 from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
 from fgs_nerf_tpu_torch.ops.cuda import scatter_combine_cm as B2
+from fgs_nerf_tpu_torch.ops.cuda import tap_serve_cm as B56
 from fgs_nerf_tpu_torch.ops.cuda import window_gather_cm as B1
 from fgs_nerf_tpu_torch.train.losses import LossWeights
 from fgs_nerf_tpu_torch.train.trainer import make_loss_and_grads
@@ -37,24 +38,28 @@ PE = (5, 5, 1)
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: run `python -m pytest "
+        pytest.skip("needs a CUDA card: run `python -m pytest --noconftest "
                     "tests/test_torch_kernels.py` on the H100")
     return torch.device("cuda")
 
 
 @contextlib.contextmanager
 def plain_twins():
-    """Route the four kernel call sites to their plain twins."""
+    """Route the six kernel call sites to their plain twins."""
     saved = (ST.window_gather_cm, ST.dense_accumulate_cm,
+             ST.tap_window_serve_cm, ST.tap_dense_accumulate_cm,
              FS.fused_shade_cm_fwd, FS.fused_shade_cm_bwd)
     ST.window_gather_cm = B1.window_gather_cm_plain
     ST.dense_accumulate_cm = B2.dense_accumulate_cm_plain
+    ST.tap_window_serve_cm = B56.tap_window_serve_cm_plain
+    ST.tap_dense_accumulate_cm = B56.tap_dense_accumulate_cm_plain
     FS.fused_shade_cm_fwd = FS.fused_shade_cm_fwd_plain
     FS.fused_shade_cm_bwd = FS.fused_shade_cm_bwd_plain
     try:
         yield
     finally:
         (ST.window_gather_cm, ST.dense_accumulate_cm,
+         ST.tap_window_serve_cm, ST.tap_dense_accumulate_cm,
          FS.fused_shade_cm_fwd, FS.fused_shade_cm_bwd) = saved
 
 
@@ -173,3 +178,101 @@ def test_coarse_step_kernels_match_plain(cuda):
         assert _rel_l2(gk[name], gp[name]) < 1e-3
     for name in gk["refnet"]:
         assert _rel_l2(gk["refnet"][name], gp["refnet"][name]) < 1e-3
+
+
+def _tap_stream(rng, m, t, rp, n_long):
+    """Sorted rows with a long run of one row (the sentinels of masked
+    traffic) and tap offsets that keep every read inside [0, rp)."""
+    rows = np.sort(rng.integers(40, rp - 60, size=m)).astype(np.int32)
+    rows[m - n_long:] = rp - 40
+    delta = rng.integers(-30, 20, size=(t, m)).astype(np.int32)
+    delta[:, m - n_long:] = rng.integers(-2, 1, size=(t, n_long))
+    w8t = rng.uniform(size=(8 * t, m)).astype(np.float32)
+    g = rng.normal(size=(t, m)).astype(np.float32)
+    pack = rng.normal(size=(4, rp)).astype(np.float32)
+    return [torch.from_numpy(a) for a in (pack, rows, delta, w8t, g)]
+
+
+def test_b5_b6_match_plain(cuda):
+    rng = np.random.default_rng(7)
+    t, rp = 16, 60000
+    cpu = _tap_stream(rng, 40000, t, rp, 3000)
+    pack, rows, delta, w8t, g = (a.to(cuda) for a in cpu)
+
+    n0 = dict(B56.KERNEL.launches)
+    got = B56.tap_window_serve_cm(pack, rows, delta, w8t)
+    torch.cuda.synchronize()
+    assert B56.KERNEL.launches["tap_window_serve_cm"] == n0["tap_window_serve_cm"] + 1
+    assert torch.equal(got, B56.tap_window_serve_cm_plain(pack, rows, delta, w8t))
+    assert torch.equal(got.cpu(), B56.tap_window_serve_cm_plain(*cpu[:4]))
+
+    got = B56.tap_dense_accumulate_cm(rows, delta, w8t, g, rp)
+    torch.cuda.synchronize()
+    assert (B56.KERNEL.launches["tap_dense_accumulate_cm"]
+            == n0["tap_dense_accumulate_cm"] + 1)
+    want_cpu = B56.tap_dense_accumulate_cm_plain(*cpu[1:], rp)
+    # rows whose runs hold at most 2 x CHUNK deposits add in the CPU twin's
+    # order: bit for bit; the sentinel keys go through block sums
+    keys = (cpu[1][None, :] + cpu[2]).reshape(-1).numpy()
+    counts = np.bincount(keys, minlength=rp + 1)
+    long_ = counts[:rp] > 2 * B56.CHUNK
+    assert long_.any()
+    short = ~(long_ | np.concatenate([[False], long_[:-1]]))
+    assert torch.equal(got.cpu()[:, short], want_cpu[:, short])
+    # the ~16,000-deposit sentinel runs reassociate to ~2e-5 relative
+    scale = float(want_cpu.abs().max())
+    assert float((got.cpu() - want_cpu).abs().max()) <= 1e-4 * scale
+    want = B56.tap_dense_accumulate_cm_plain(rows, delta, w8t, g, rp)
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+    assert torch.equal(got, B56.tap_dense_accumulate_cm(rows, delta, w8t, g, rp))
+
+
+def test_fine_step_kernels_match_plain(cuda):
+    """A small fine step (20^3 grid, 256 rays, widths 64) through B1, B2,
+    B5 and B6 and through their plain twins."""
+    d = (0.5, 1.0, 1.5, 2.0)
+    cfg = M.make_model_config(
+        stage="fine", xyz_min=[-1, -1, -1], xyz_max=[1, 1, 1],
+        num_voxels=20**3, num_voxels_base=20**3, stepsize=0.5, k0_dim=12,
+        rgbnet_width=64, rgbnet_depth=3, refnet_width=64, refnet_depth=3,
+        posbase_pe=5, viewbase_pe=3, refbase_pe=8, grad_feat=d, sdf_feat=d,
+        s_start=0.2, sample_k=48, shade_k=24, shade_remat=False,
+        engine="sorted")
+    params = M.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                           cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    params["k0"] = torch.randn(params["k0"].shape, generator=gen,
+                               device=cuda) * 0.3
+    n = 256
+    rays_o = torch.tensor([0.0, 0.1, 2.6], device=cuda).expand(n, 3).contiguous()
+    look = torch.randn((n, 3), generator=gen, device=cuda) * 0.4
+    rays_d = look - rays_o
+    viewdirs = rays_d / rays_d.norm(dim=-1, keepdim=True)
+    target = torch.rand((n, 3), generator=gen, device=cuda)
+    box = SceneBox.create([-1, -1, -1], [1, 1, 1], cuda)
+    fn = make_loss_and_grads(
+        cfg, box, LossWeights(weight_main=1.0, weight_entropy_last=1e-3,
+                              weight_orientation=1e-4, sigmoid_rgb_loss=0.02,
+                              weight_tv_density=0.01),
+        near=0.2, bg=1.0, sdf_tv=0.1, smooth_grad_tv=0.05,
+        use_nonempty_mask=False)
+    args = (params, {}, rays_o, rays_d, viewdirs, target,
+            torch.tensor(0.2, device=cuda), 1.0)
+    kernels = {"b1": (B1.KERNEL, "window_gather_cm"),
+               "b2": (B2.KERNEL, "dense_accumulate_cm"),
+               "b5": (B56.KERNEL, "tap_window_serve_cm"),
+               "b6": (B56.KERNEL, "tap_dense_accumulate_cm")}
+    before = {k: kern.launches[fn_] for k, (kern, fn_) in kernels.items()}
+    _, lk, gk = fn(*args)
+    torch.cuda.synchronize()
+    for k, (kern, fn_) in kernels.items():
+        assert kern.launches[fn_] == before[k] + 2, k
+    with plain_twins():
+        _, lp, gp = fn(*args)
+    assert torch.isfinite(lk["loss"])
+    torch.testing.assert_close(lk["loss"], lp["loss"], rtol=1e-4, atol=0)
+    for name in ("sdf", "k0"):
+        assert _rel_l2(gk[name], gp[name]) < 1e-3
+    for net in ("rgbnet", "refnet"):
+        for name in gk[net]:
+            assert _rel_l2(gk[net][name], gp[net][name]) < 1e-3
