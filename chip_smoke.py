@@ -43,13 +43,34 @@ shade_k 128 -> 1,048,576 pass-2 samples, rgbnet 106 -> 256 x 4, refnet
    (the sentinel runs are long there).
 8. Fine kernel path against plain path, as phase 4.
 
+The lattice engine (``engine="lattice"``, the JAX package's default and
+the engine of every evaluation), whose grid-gradient accumulate is B7:
+
+9. Lattice coarse kernel check: one step at the ``bench.py --engine
+   lattice`` configuration (the coarse configuration above), its B7 call
+   held against its twin, repeated, timed (kernel, twin, ``index_add_``)
+   and bounded.
+10. Lattice coarse main path: zero the counts, 2 warm-up and 10 timed
+    steps; the loss is finite and falls, B7 launches once per step;
+    profile two steps; a kernel step against a plain step, as phase 4.
+11. Lattice fine, at the ``bench.py:_fine_workload`` configuration with
+    ``engine="lattice"``: one step with its three B7 calls (the fused
+    ``[sdf | k0]`` field, the center taps, the hierarchical taps) checked
+    as in phase 9; 2 warm-up and 4 timed steps, B7 three times per step;
+    peak memory, a profile, and a kernel step against a plain step.
+12. Eval render: one 800 x 800 view of the procedural glossy sphere
+    (``pose_spherical(30, -30, 4)``, the synthetic focal) through
+    ``eval/render.py`` with the fine parameters left by phase 11: PSNR,
+    SSIM, seconds per view and rays/s; every pixel finite and in [0, 1].
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
 Tolerances and why: B1 and B5 sum in their twins' order with IEEE
 operations, so they must be bit-equal; the B2 / B6 twins use
 ``index_add_``, whose atomics add in any order (relative 1e-4 of the
-largest value), and B2 / B6 must repeat bit for bit; B3/B4 share every
+largest value), and B2 / B6 must repeat bit for bit; so must B7, whose
+twin is ``index_add_`` as well; B3/B4 share every
 bf16 rounding with their twins but sum in another order, so a hidden
 value can land one bf16 ulp away (logits: max 1e-2, at most 1% past
 1e-5; cotangents: relative L2 1e-3).  Whole-step losses: relative 1e-4;
@@ -70,6 +91,82 @@ PEAK_F32_FLOPS = 67e12       # fp32 outside the tensor cores
 N_WARMUP = 2
 N_STEPS = 10
 N_FINE_STEPS = 4
+
+
+XYZ_MIN = (-1.0, -1.0, -1.0)
+XYZ_MAX = (1.0, 1.0, 1.0)
+FINE_DISPLACE = (0.5, 1.0, 1.5, 2.0)
+
+
+def _coarse_cfg(M, engine):
+    """The ``bench.py:105-121`` coarse configuration on ``engine``."""
+    return M.make_model_config(
+        stage="coarse", xyz_min=XYZ_MIN, xyz_max=XYZ_MAX,
+        num_voxels=1_500_000, num_voxels_base=1_500_000, stepsize=0.5,
+        k0_dim=12, refnet_width=192, refnet_depth=3, posbase_pe=5,
+        viewbase_pe=1, refbase_pe=5, smooth_ksize=5, smooth_sigma=0.8,
+        s_ratio=50.0, s_start=0.2, fast_color_thres=1e-4, shade_k=256,
+        sample_k=288, shade_remat=False, engine=engine,
+    )
+
+
+def _fine_cfg(M, engine):
+    """The ``bench.py:_fine_workload`` configuration on ``engine``."""
+    return M.make_model_config(
+        stage="fine", xyz_min=XYZ_MIN, xyz_max=XYZ_MAX,
+        num_voxels=256**3, num_voxels_base=256**3, stepsize=0.5,
+        k0_dim=12, rgbnet_width=256, rgbnet_depth=4, refnet_width=256,
+        refnet_depth=4, posbase_pe=5, viewbase_pe=3, refbase_pe=8,
+        grad_feat=FINE_DISPLACE, sdf_feat=FINE_DISPLACE, center_sdf=True,
+        use_viewdir=True, s_ratio=50.0, s_start=0.05, fast_color_thres=1e-4,
+        shade_k=128, sample_k=512, shade_remat=False, engine=engine,
+    )
+
+
+# per workload: loss weights, learning rates, s_val, fine-stage TV injection
+_WORKLOADS = {
+    "coarse": (_coarse_cfg,
+               dict(weight_main=1.0, weight_rgbper=0.2,
+                    weight_entropy_last=1e-3, weight_orientation=1e-4,
+                    sigmoid_rgb_loss=0.1, weight_tv_density=0.01,
+                    weight_tv_k0=0.0, ori_tv=True),
+               {"sdf": 0.1, "k0": 0.1, "refnet": 1e-3}, 0.2, False),
+    "fine": (_fine_cfg,
+             dict(weight_main=1.0, weight_rgbper=0.0,
+                  weight_entropy_last=1e-3, weight_orientation=1e-4,
+                  sigmoid_rgb_loss=0.02, weight_tv_density=0.01,
+                  weight_tv_k0=0.0, ori_tv=False),
+             {"sdf": 5e-3, "k0": 0.1, "refnet": 1e-3, "rgbnet": 1e-3}, 0.05,
+             True),
+}
+
+
+def _setup(torch, M, stage, engine, dev, n_rand):
+    """(cfg, box, params0, lrs, s_val, loss_and_grads, step) of the
+    ``stage`` bench workload on ``engine``."""
+    from fgs_nerf_tpu_torch.core.box import SceneBox
+    from fgs_nerf_tpu_torch.optim.masked_adam import ParamOpts
+    from fgs_nerf_tpu_torch.train.losses import LossWeights
+    from fgs_nerf_tpu_torch.train.trainer import (
+        make_loss_and_grads, make_train_step,
+    )
+
+    make_cfg, loss_kw, lrs, s_val, inject_tv = _WORKLOADS[stage]
+    cfg = make_cfg(M, engine)
+    box = SceneBox.create(XYZ_MIN, XYZ_MAX, dev)
+    loss_w = LossWeights(**loss_kw)
+    params0 = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                            dev)
+    opts = {k: ParamOpts(skip_zero_grad=k in ("k0", "sdf")) for k in params0}
+    loss_and_grads = make_loss_and_grads(
+        cfg, box, loss_w, near=0.2, bg=1.0, sdf_tv=0.1, smooth_grad_tv=0.05,
+        use_nonempty_mask=False)
+    step = make_train_step(
+        cfg, box, loss_w, opts, near=0.2, bg=1.0, n_rand=n_rand, sdf_tv=0.1,
+        smooth_grad_tv=0.05, inject_tv=inject_tv, tv_dense=True,
+        weight_tv_density=0.01, weight_tv_k0=0.0, use_nonempty_mask=False)
+    return (cfg, box, params0, lrs, torch.tensor(s_val, device=dev),
+            loss_and_grads, step)
 
 
 def _card_line():
@@ -115,6 +212,7 @@ def _rel_l2(a, b):
 
 
 _BUCKETS = (  # kernel-name fragments -> bucket, first match wins
+    ("accumulate B7", ("rowmajor_",)),
     ("serve B5", ("tap_window_serve",)),
     ("accumulate B6", ("tap_run_starts", "tap_chunk_sums",
                        "tap_dense_accumulate")),
@@ -188,9 +286,10 @@ def _patched(pairs):
             setattr(mod, attr, value)
 
 
-def _plain_twins(ST, FS, B1, B2, B56):
-    """Route the six kernel call sites to their plain twins."""
+def _plain_twins(ST, FS, SC, B1, B2, B56, B7):
+    """Route the seven kernel call sites to their plain twins."""
     return _patched([
+        (SC, "dense_accumulate", B7.dense_accumulate_plain),
         (ST, "window_gather_cm", B1.window_gather_cm_plain),
         (ST, "dense_accumulate_cm", B2.dense_accumulate_cm_plain),
         (ST, "tap_window_serve_cm", B56.tap_window_serve_cm_plain),
@@ -267,80 +366,52 @@ def _check_serve(torch, name, fn, plain, args, touched, n_flops, path):
                 whole_pack_bound_ms=_nbytes(args[0]) / PEAK_BYTES_PER_S * 1e3)
 
 
-def _check_accumulate(torch, name, fn, plain, args, lib_args, n_flops, path):
-    """An accumulate kernel (B2, B6): within 1e-4 of the largest value of
-    its twin (``index_add_`` atomics add in any order), bit-equal on a
+def _check_accumulate(torch, name, fn, plain, args, keys, library, n_flops,
+                      path):
+    """An accumulate kernel (B2, B6, B7): within 1e-4 of the largest value
+    of its twin (``index_add_`` atomics add in any order), bit-equal on a
     repeat; timed; bound by inputs read once and the dense output written
-    once; the library time is ``index_add_`` alone on formed updates."""
+    once; the library time is ``library()``, ``index_add_`` alone on
+    updates formed outside the timed region."""
     got = fn(*args)
     want = plain(*args)
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
+    del want
     _check(err <= 1e-4 * scale + 1e-12, f"{name} ({path}): {err} vs {scale}")
     _check(torch.equal(got, fn(*args)), f"{name} ({path}) is not deterministic")
-    keys = lib_args[0]
     longest = int(torch.unique_consecutive(torch.sort(keys)[0],
                                            return_counts=True)[1].max())
     bound = _bound(_nbytes(*args[:-1], got), n_flops, PEAK_F32_FLOPS)
-    del got, want
-    idx, upd, shape = lib_args[1:]
+    del got
+    torch.cuda.empty_cache()
     return dict(path=path, max_abs_err=err, m=args[0].numel(),
                 longest_run=longest,
                 ms=_time_ms(lambda: fn(*args), 3, torch),
                 plain_ms=_time_ms(lambda: plain(*args), 2, torch),
                 bound_ms=bound[0], bound_by=bound[1],
-                library_ms=_time_ms(
-                    lambda: torch.zeros(shape, device=upd.device).index_add_(
-                        1, idx, upd), 2, torch))
+                library_ms=_time_ms(library, 2, torch))
 
 
 def _fine_phases(torch, np, card, dev, batch, n_rand):
     """Phases 5-8 at the ``bench.py:_fine_workload`` configuration.
     Returns (per-kernel lists of checked calls, main-path launch counts,
     masked-path launch counts)."""
-    from fgs_nerf_tpu_torch.core.box import SceneBox
     from fgs_nerf_tpu_torch.models import sdf_voxel as M
+    from fgs_nerf_tpu_torch.ops import scatter as SC
     from fgs_nerf_tpu_torch.ops import sorted_cm as ST
     from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
+    from fgs_nerf_tpu_torch.ops.cuda import scatter_combine as B7
     from fgs_nerf_tpu_torch.ops.cuda import scatter_combine_cm as B2
     from fgs_nerf_tpu_torch.ops.cuda import tap_serve_cm as B56
     from fgs_nerf_tpu_torch.ops.cuda import window_gather_cm as B1
-    from fgs_nerf_tpu_torch.optim.masked_adam import ParamOpts, init_state
-    from fgs_nerf_tpu_torch.train.losses import LossWeights
-    from fgs_nerf_tpu_torch.train.trainer import (
-        make_loss_and_grads, make_train_step,
-    )
+    from fgs_nerf_tpu_torch.optim.masked_adam import init_state
 
-    xyz_min = np.array([-1.0, -1.0, -1.0], np.float32)
-    xyz_max = np.array([1.0, 1.0, 1.0], np.float32)
-    displace = (0.5, 1.0, 1.5, 2.0)
-    cfg = M.make_model_config(
-        stage="fine", xyz_min=xyz_min, xyz_max=xyz_max,
-        num_voxels=256**3, num_voxels_base=256**3, stepsize=0.5,
-        k0_dim=12, rgbnet_width=256, rgbnet_depth=4, refnet_width=256,
-        refnet_depth=4, posbase_pe=5, viewbase_pe=3, refbase_pe=8,
-        grad_feat=displace, sdf_feat=displace, center_sdf=True,
-        use_viewdir=True, s_ratio=50.0, s_start=0.05, fast_color_thres=1e-4,
-        shade_k=128, sample_k=512, shade_remat=False, engine="sorted",
-    )
-    box = SceneBox.create(xyz_min, xyz_max, dev)
-    loss_w = LossWeights(
-        weight_main=1.0, weight_rgbper=0.0, weight_entropy_last=1e-3,
-        weight_orientation=1e-4, sigmoid_rgb_loss=0.02,
-        weight_tv_density=0.01, weight_tv_k0=0.0, ori_tv=False,
-    )
-    params0 = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
-                            dev)
-    opts = {k: ParamOpts(skip_zero_grad=k in ("k0", "sdf")) for k in params0}
-    lrs = {"sdf": 5e-3, "k0": 0.1, "refnet": 1e-3, "rgbnet": 1e-3}
-    s_val = torch.tensor(0.05, device=dev)
-    loss_and_grads = make_loss_and_grads(
-        cfg, box, loss_w, near=0.2, bg=1.0, sdf_tv=0.1, smooth_grad_tv=0.05,
-        use_nonempty_mask=False)
-    step = make_train_step(
-        cfg, box, loss_w, opts, near=0.2, bg=1.0, n_rand=n_rand, sdf_tv=0.1,
-        smooth_grad_tv=0.05, inject_tv=True, tv_dense=True,
-        weight_tv_density=0.01, weight_tv_k0=0.0, use_nonempty_mask=False)
+    displace = FINE_DISPLACE
+    cfg, _, params0, lrs, s_val, loss_and_grads, step = _setup(
+        torch, M, "fine", "sorted", dev, n_rand)
+    xyz_min = np.array(XYZ_MIN, np.float32)
+    xyz_max = np.array(XYZ_MAX, np.float32)
     m1, m2 = n_rand * cfg.sample_k, n_rand * cfg.shade_k
     print(json.dumps({
         "config": "bench.py fine", "world_size": cfg.world_size,
@@ -392,18 +463,24 @@ def _fine_phases(torch, np, card, dev, batch, n_rand):
         if name == "dense_accumulate_cm":
             rows, w8, g, n_rows = args
             upd0, upd1 = B2.dense_updates(w8, g)
-            lib = (rows, torch.cat([rows, rows + 1]).long(),
-                   torch.cat([upd0, upd1], dim=1), (4 * g.shape[0], n_rows))
+            idx = torch.cat([rows, rows + 1]).long()
+            upd = torch.cat([upd0, upd1], dim=1)
             del upd0, upd1
-            return _check_accumulate(torch, name, B2.dense_accumulate_cm,
-                                     B2.dense_accumulate_cm_plain, args, lib,
-                                     16 * g.shape[0] * rows.numel(), path)
+            return _check_accumulate(
+                torch, name, B2.dense_accumulate_cm,
+                B2.dense_accumulate_cm_plain, args, rows,
+                lambda: torch.zeros((4 * g.shape[0], n_rows),
+                                    device=g.device).index_add_(1, idx, upd),
+                16 * g.shape[0] * rows.numel(), path)
         rows, delta, w8t, g, n_rows = args
         idx, upd = B56.tap_updates(rows, delta, w8t, g)
-        lib = ((rows[None, :] + delta).reshape(-1), idx, upd, (4, n_rows))
-        return _check_accumulate(torch, name, B56.tap_dense_accumulate_cm,
-                                 B56.tap_dense_accumulate_cm_plain, args, lib,
-                                 16 * delta.numel(), path)
+        return _check_accumulate(
+            torch, name, B56.tap_dense_accumulate_cm,
+            B56.tap_dense_accumulate_cm_plain, args,
+            (rows[None, :] + delta).reshape(-1),
+            lambda: torch.zeros((4, n_rows), device=g.device).index_add_(
+                1, idx, upd),
+            16 * delta.numel(), path)
 
     def check_all(calls, suffix=""):
         out = {}
@@ -497,9 +574,193 @@ def _fine_phases(torch, np, card, dev, batch, n_rand):
     # ---- 8. fine kernel path against plain path ---------------------------
     report = _step_vs_plain(torch, loss_and_grads, step, (params, opt_state),
                             {}, batch, s_val, lrs,
-                            _plain_twins(ST, FS, B1, B2, B56))
+                            _plain_twins(ST, FS, SC, B1, B2, B56, B7))
     print(json.dumps({"fine_kernel_vs_plain_step": report, "card": card}))
     return fine_calls, launches, masked_launches
+
+
+@contextlib.contextmanager
+def _record_b7(torch, IT, SC, stage, calls):
+    """Record every B7 call's inputs with the gather it is the backward
+    of: the fused field (idx [N, S, 3]), the center taps (idx [..., 6, 1,
+    3]) or the hierarchical taps (idx [..., 6, D, 3])."""
+    labels = []
+    classes = (IT._TrilinearSampleIndex, IT._TrilinearSampleIndexPacked)
+    saved = [(cls, cls.__dict__["backward"]) for cls in classes]
+    site = SC.dense_accumulate
+
+    def labelled(fn):
+        def backward(ctx, g):
+            shape = ctx.saved_tensors[0].shape
+            kind = ("field" if len(shape) == 3 else
+                    "center taps" if shape[-2] == 1 else "hierarchical taps")
+            labels.append(f"{stage} {kind}")
+            return fn(ctx, g)
+        return staticmethod(backward)
+
+    def rec(*args):
+        calls.append((labels[-1], _clone(args, torch)))
+        return site(*args)
+
+    for cls, sm in saved:
+        cls.backward = labelled(sm.__func__)
+    SC.dense_accumulate = rec
+    try:
+        yield
+    finally:
+        SC.dense_accumulate = site
+        for cls, sm in saved:
+            cls.backward = sm
+
+
+def _lattice_phases(torch, np, card, dev, batch, n_rand):
+    """Phases 9-11: the lattice engine's coarse and fine steps.  Returns
+    (B7's checked calls, launch counts per path, the fine state for the
+    eval render)."""
+    from fgs_nerf_tpu_torch.models import sdf_voxel as M
+    from fgs_nerf_tpu_torch.ops import interp as IT
+    from fgs_nerf_tpu_torch.ops import scatter as SC
+    from fgs_nerf_tpu_torch.ops import sorted_cm as ST
+    from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
+    from fgs_nerf_tpu_torch.ops.cuda import scatter_combine as B7
+    from fgs_nerf_tpu_torch.ops.cuda import scatter_combine_cm as B2
+    from fgs_nerf_tpu_torch.ops.cuda import tap_serve_cm as B56
+    from fgs_nerf_tpu_torch.ops.cuda import window_gather_cm as B1
+    from fgs_nerf_tpu_torch.optim.masked_adam import init_state
+
+    kernels = (B1.KERNEL, B2.KERNEL, FS.KERNEL, B56.KERNEL, B7.KERNEL)
+
+    def zero_counts():
+        for k in kernels:
+            for fn in k.launches:
+                k.launches[fn] = 0
+
+    def counts():
+        return {fn: n for k in kernels for fn, n in k.launches.items() if n}
+
+    b7_calls, launches = [], {}
+    per_step = {"coarse": 1, "fine": 3}
+    n_steps = {"coarse": N_STEPS, "fine": N_FINE_STEPS}
+    for stage in ("coarse", "fine"):
+        path = f"lattice {stage}"
+        cfg, box, params0, lrs, s_val, loss_and_grads, step = _setup(
+            torch, M, stage, "lattice", dev, n_rand)
+        print(json.dumps({"config": f"bench.py {stage}, engine lattice",
+                          "world_size": cfg.world_size, "s_max": cfg.s_max,
+                          "sample_k": cfg.sample_k, "shade_k": cfg.shade_k,
+                          "samples_per_step": n_rand * cfg.sample_k}))
+
+        # ---- 9. / 11. B7 on the main path's own inputs -----------------
+        calls = []
+        with _record_b7(torch, IT, SC, stage, calls):
+            loss_and_grads(params0, {}, *batch, s_val, 1.0)
+        torch.cuda.synchronize()
+        _check(len(calls) == per_step[stage],
+               f"{path}: {[c[0] for c in calls]}")
+        torch.cuda.empty_cache()
+        while calls:
+            label, args = calls.pop(0)
+            rows, upd, cap = args
+            idx = rows.long()
+            # one add per update value
+            r = _check_accumulate(
+                torch, "B7", B7.dense_accumulate, B7.dense_accumulate_plain,
+                args, rows,
+                lambda: torch.zeros((cap, upd.shape[1]),
+                                    device=upd.device).index_add_(0, idx, upd),
+                upd.numel(), label)
+            r.update(c=upd.shape[1], cap=cap)
+            del args, rows, upd, idx
+            torch.cuda.empty_cache()
+            b7_calls.append(r)
+            print(json.dumps({"kernel": "dense_accumulate", **r, "card": card}))
+
+        # ---- 10. / 11. main path --------------------------------------
+        zero_counts()
+        params, opt_state = params0, init_state(params0)
+        losses = []
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(N_WARMUP + n_steps[stage]):
+            if i == N_WARMUP:
+                torch.cuda.synchronize()
+                t_start = time.perf_counter()
+            params, opt_state, metrics = step(params, opt_state, {}, *batch,
+                                              s_val, lrs, 1.0)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t_start) / n_steps[stage]
+        launches[path] = counts()
+        losses = [float(x) for x in losses]
+        print(json.dumps({
+            "metric": f"train_rays_per_s_lattice_{stage}",
+            "value": n_rand / dt, "step_ms": dt * 1e3,
+            "steps": n_steps[stage], "card": card,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "losses": losses, "launches": launches[path],
+            "metrics": {k: float(v) for k, v in metrics.items()}}))
+        _check(all(np.isfinite(losses)), losses)
+        _check(losses[-1] < losses[0], f"{path} loss did not fall: {losses}")
+        want = {"dense_accumulate": per_step[stage] * (N_WARMUP + n_steps[stage])}
+        _check(launches[path] == want,
+               f"{path}: launches {launches[path]}, expected {want}")
+        _device_breakdown(torch, lambda: step(params, opt_state, {}, *batch,
+                                              s_val, lrs, 1.0), dt * 1e3,
+                          card, path=path)
+        report = _step_vs_plain(torch, loss_and_grads, step,
+                                (params, opt_state), {}, batch, s_val, lrs,
+                                _plain_twins(ST, FS, SC, B1, B2, B56, B7))
+        print(json.dumps({f"{path}_kernel_vs_plain_step": report,
+                          "card": card}))
+        del params0, opt_state, report
+        torch.cuda.empty_cache()
+    return b7_calls, launches, (cfg, box, params, s_val)
+
+
+def _eval_phase(torch, np, card, fine_state):
+    """Phase 12: one 800 x 800 view of the procedural sphere through
+    ``eval/render.py`` (lattice engine, no autograd)."""
+    from fgs_nerf_tpu_torch.data.rays import get_rays_of_a_view
+    from fgs_nerf_tpu_torch.data.synthetic import (
+        intrinsics, pose_spherical, shade_sphere,
+    )
+    from fgs_nerf_tpu_torch.eval import render as R
+    from fgs_nerf_tpu_torch.ops.cuda import scatter_combine as B7
+
+    cfg, box, params, s_val = fine_state
+    h = w = 800
+    k = intrinsics(h, w)
+    c2w = pose_spherical(30.0, -30.0, 4.0)
+    conv = dict(ndc=False, inverse_y=False, flip_x=False, flip_y=False)
+    rays_o, rays_d, _ = get_rays_of_a_view(h, w, k, c2w, **conv)
+    gt, mask = shade_sphere(rays_o, rays_d)
+    render_chunk = R.make_render_fn(cfg, box, near=2.0, bg=1.0)
+    n0 = B7.KERNEL.launches["dense_accumulate"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+    img = R.render_image(render_chunk, params, {}, h, w, k, c2w, conv, s_val)
+    torch.cuda.synchronize()
+    t_render = time.perf_counter() - t_start
+    t_start = time.perf_counter()
+    stats = R.render_viewpoints(render_chunk, params, {}, [c2w], [(h, w)],
+                                [k], conv, s_val, gt_imgs=[gt], masks=[mask])
+    t_view = time.perf_counter() - t_start
+    rgb = stats["rgbs"][0]
+    print(json.dumps({
+        "metric": "eval_render_800x800", "s_per_view": t_render,
+        "rays_per_s": h * w / t_render,
+        "s_per_view_with_metrics": t_view, "psnr": stats["psnr"][0],
+        "fore_psnr": stats["fore_psnr"][0], "bg_psnr": stats["bg_psnr"][0],
+        "ssim": stats["ssim"][0], "overflow_frac": img["overflow_frac"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "card": card}))
+    _check(rgb.shape == (h, w, 3), rgb.shape)
+    _check(bool(np.all(np.isfinite(rgb))) and rgb.min() >= 0.0
+           and rgb.max() <= 1.0, "eval pixels not finite or outside [0, 1]")
+    _check(np.array_equal(rgb, img["rgb_marched"]),
+           "two renders of one view differ")
+    _check(B7.KERNEL.launches["dense_accumulate"] == n0,
+           "the eval render ran a backward")
 
 
 def main():
@@ -515,26 +776,23 @@ def main():
 
     import numpy as np
 
-    from fgs_nerf_tpu_torch.core.box import SceneBox
     from fgs_nerf_tpu_torch.device import resolve_device
     from fgs_nerf_tpu_torch.models import sdf_voxel as M
+    from fgs_nerf_tpu_torch.ops import scatter as SC
     from fgs_nerf_tpu_torch.ops import sorted_cm as ST
     from fgs_nerf_tpu_torch.ops.cuda import build
     from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
+    from fgs_nerf_tpu_torch.ops.cuda import scatter_combine as B7
     from fgs_nerf_tpu_torch.ops.cuda import scatter_combine_cm as B2
     from fgs_nerf_tpu_torch.ops.cuda import tap_serve_cm as B56
     from fgs_nerf_tpu_torch.ops.cuda import window_gather_cm as B1
-    from fgs_nerf_tpu_torch.optim.masked_adam import ParamOpts, init_state
-    from fgs_nerf_tpu_torch.train.losses import LossWeights
-    from fgs_nerf_tpu_torch.train.trainer import (
-        make_loss_and_grads, make_train_step,
-    )
+    from fgs_nerf_tpu_torch.optim.masked_adam import init_state
 
     dev = resolve_device(None)
     t0 = time.perf_counter()
 
     # ---- 1. build ------------------------------------------------------
-    kernels = (B1.KERNEL, B2.KERNEL, FS.KERNEL, B56.KERNEL)
+    kernels = (B1.KERNEL, B2.KERNEL, FS.KERNEL, B56.KERNEL, B7.KERNEL)
     build.build_all(kernels)
     print(f"build: {time.perf_counter() - t0:.1f} s")
     for k in kernels:
@@ -546,17 +804,6 @@ def main():
     kind = torch.cuda.get_device_name(0)
 
     # ---- the bench.py configuration and traffic --------------------------
-    xyz_min = np.array([-1.0, -1.0, -1.0], np.float32)
-    xyz_max = np.array([1.0, 1.0, 1.0], np.float32)
-    cfg = M.make_model_config(
-        stage="coarse", xyz_min=xyz_min, xyz_max=xyz_max,
-        num_voxels=1_500_000, num_voxels_base=1_500_000, stepsize=0.5,
-        k0_dim=12, refnet_width=192, refnet_depth=3, posbase_pe=5,
-        viewbase_pe=1, refbase_pe=5, smooth_ksize=5, smooth_sigma=0.8,
-        s_ratio=50.0, s_start=0.2, fast_color_thres=1e-4, shade_k=256,
-        sample_k=288, shade_remat=False, engine="sorted",
-    )
-    box = SceneBox.create(xyz_min, xyz_max, dev)
     n_rand = 8192
     rng = np.random.default_rng(0)
     cam = np.array([0.0, 0.0, 3.5], np.float32)
@@ -567,24 +814,8 @@ def main():
     target = rng.uniform(size=(n_rand, 3)).astype(np.float32)
     batch = [torch.as_tensor(a, device=dev)
              for a in (rays_o, rays_d, viewdirs, target)]
-    loss_w = LossWeights(
-        weight_main=1.0, weight_rgbper=0.2, weight_entropy_last=1e-3,
-        weight_orientation=1e-4, sigmoid_rgb_loss=0.1,
-        weight_tv_density=0.01, weight_tv_k0=0.0, ori_tv=True,
-    )
-    step_kw = dict(near=0.2, bg=1.0, n_rand=n_rand, sdf_tv=0.1,
-                   smooth_grad_tv=0.05, inject_tv=False, tv_dense=True,
-                   weight_tv_density=0.01, weight_tv_k0=0.0,
-                   use_nonempty_mask=False)
-    params0 = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
-                            dev)
-    opts = {k: ParamOpts(skip_zero_grad=k in ("k0", "sdf")) for k in params0}
-    lrs = {"sdf": 0.1, "k0": 0.1, "refnet": 1e-3}
-    s_val = torch.tensor(0.2, device=dev)
-    loss_and_grads = make_loss_and_grads(
-        cfg, box, loss_w, near=0.2, bg=1.0, sdf_tv=0.1, smooth_grad_tv=0.05,
-        use_nonempty_mask=False)
-    step = make_train_step(cfg, box, loss_w, opts, **step_kw)
+    cfg, _, params0, lrs, s_val, loss_and_grads, step = _setup(
+        torch, M, "coarse", "sorted", dev, n_rand)
     m = n_rand * cfg.sample_k
     print(json.dumps({"config": "bench.py coarse", "world_size": cfg.world_size,
                       "s_max": cfg.s_max, "sample_k": cfg.sample_k,
@@ -762,7 +993,7 @@ def main():
                                           s_val, lrs, 1.0), dt * 1e3, card)
 
     # ---- 4. kernel path against plain path -------------------------------
-    twins = _plain_twins(ST, FS, B1, B2, B56)
+    twins = _plain_twins(ST, FS, SC, B1, B2, B56, B7)
     report = _step_vs_plain(torch, loss_and_grads, step, (params, opt_state),
                             {}, batch, s_val, lrs, twins)
     print(json.dumps({"kernel_vs_plain_step": report}))
@@ -773,12 +1004,25 @@ def main():
     # ---- 5.-8. the fine stage ------------------------------------------
     fine_calls, fine_launches, masked_launches = _fine_phases(
         torch, np, card, dev, batch, n_rand)
+    torch.cuda.empty_cache()
+
+    # ---- 9.-11. the lattice engine, 12. the eval render ------------------
+    b7_calls, lattice_launches, fine_state = _lattice_phases(
+        torch, np, card, dev, batch, n_rand)
+    _eval_phase(torch, np, card, fine_state)
+    del fine_state
 
     coarse_calls = {name: [dict(path="coarse", max_abs_err=r["max_abs_err"],
                                 ms=r["ms"], plain_ms=r["plain_ms"],
                                 bound_ms=r["bound"][0], bound_by=r["bound"][1],
                                 library_ms=r["library_ms"])]
                     for name, r in results.items()}
+    launcher_of = {"window_gather_cm": "window_gather_cm",
+                   "dense_accumulate_cm": "dense_accumulate_cm",
+                   "fused_shade_cm_fwd": "fused_shade_fwd",
+                   "fused_shade_cm_bwd": "fused_shade_bwd",
+                   "tap_window_serve_cm": "tap_window_serve_cm",
+                   "tap_dense_accumulate_cm": "tap_dense_accumulate_cm"}
     rows_out = []
     for name, kern, replaces, main_call in (
         ("window_gather_cm", B1.KERNEL,
@@ -798,7 +1042,9 @@ def main():
         main = next(c for c in calls if c["path"] == main_call)
         by_path = {"coarse": coarse_launches.get(name, 0),
                    "fine": fine_launches.get(name, 0),
-                   "fine_masked": masked_launches.get(name, 0)}
+                   "fine_masked": masked_launches.get(name, 0),
+                   **{p.replace(" ", "_"): c.get(launcher_of[name], 0)
+                      for p, c in lattice_launches.items()}}
         rows_out.append({
             "name": name, "route": "cuda", "source": kern.source_rel,
             "replaces": replaces,
@@ -813,6 +1059,24 @@ def main():
                 "fine": by_path["fine"] / (N_WARMUP + N_FINE_STEPS)},
             "calls": calls,
         })
+    main = next(c for c in b7_calls if c["path"] == "fine field")
+    by_path = {p.replace(" ", "_"): c.get("dense_accumulate", 0)
+               for p, c in lattice_launches.items()}
+    rows_out.append({
+        "name": "dense_accumulate", "route": "cuda",
+        "source": B7.KERNEL.source_rel,
+        "replaces": "fgs_nerf_tpu/ops/pallas/scatter_combine.py:118",
+        "launches": by_path["lattice_fine"],
+        "max_abs_err": max(c["max_abs_err"] for c in b7_calls),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"], "timed_call": "fine field",
+        "launches_by_path": by_path,
+        "launches_per_step": {
+            "lattice_coarse": by_path["lattice_coarse"] / (N_WARMUP + N_STEPS),
+            "lattice_fine": by_path["lattice_fine"] / (N_WARMUP + N_FINE_STEPS)},
+        "calls": b7_calls,
+    })
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows_out}))

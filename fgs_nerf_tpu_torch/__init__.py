@@ -7,7 +7,8 @@ and bound with ``ctypes`` (``ops/cuda/``).  A kernel wrapper launches its
 kernel for CUDA tensors and runs its plain PyTorch twin for CPU tensors;
 nothing else selects between the two.
 
-Ported so far: the coarse-stage train step on the sorted channel-major
-engine (``train/trainer.py:make_train_step``).  Importing the package
+Ported so far: the coarse and fine train steps on both render engines
+(``train/trainer.py:make_train_step``) and the full-image evaluation
+render (``eval/render.py``).  Importing the package
 imports neither ``jax`` nor any module of ``fgs_nerf_tpu``.
 """

@@ -6,6 +6,8 @@ Callers that want the CPU (the parity tests) pass ``device="cpu"``.
 
 TF32 stays off for matmuls and convolutions: the reference numerics are
 float32 (the JAX package's CPU path), and TF32 keeps ~3 decimal digits.
+bf16 products (``mlp_bf16``) keep float32 sums: cuBLAS may not reduce
+them in bf16.
 """
 from __future__ import annotations
 
@@ -17,9 +19,11 @@ DeviceLike = Optional[Union[str, torch.device]]
 
 
 def set_f32_numerics() -> None:
-    """Full-precision float32 matmuls and convolutions on the card."""
+    """Full-precision float32 matmuls and convolutions on the card, and
+    float32 sums in bf16 matmuls."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

@@ -1,13 +1,15 @@
-"""The SDF voxel renderer on the sorted channel-major engine.
+"""The SDF voxel renderer: the lattice engine and the sorted channel-major
+engine.
 
-Port of the parts of ``fgs_nerf_tpu/models/sdf_voxel.py`` that the
-sorted-engine train steps run: the config (``:62-233``), parameter
-construction (``:241-297``), the mask machinery (``:337-431``),
-``_compact_valid`` / ``_topk_select`` / ``_gather_slots``
-(``:535-606``), the channel-major shading heads (``:980-1067``,
+Port of ``fgs_nerf_tpu/models/sdf_voxel.py``: the config (``:62-233``),
+parameter construction (``:241-297``), the mask machinery
+(``:337-431``), the lattice engine (``_safe_norm``, ``_compact_valid``,
+``_pts_at_steps``, ``_topk_select``, ``_gather_slots``, ``forward`` and
+``forward_coarse`` / ``forward_fine`` with their shading heads,
+``:529-972``), the channel-major shading heads (``:980-1067``,
 ``:1412-1442``), ``forward_fine_sorted`` (``:1070-1409``) and
-``forward_coarse_sorted`` (``:1445-1633``).  The lattice engine is not
-ported yet: ``forward`` raises ``NotImplementedError`` for it.
+``forward_coarse_sorted`` (``:1445-1633``).  The grid handoff
+(``:309-527``) is not ported yet.
 
 Parameters are a flat dict with the JAX package's names and layouts:
   sdf    [X, Y, Z, 1]
@@ -28,17 +30,27 @@ import torch.utils.checkpoint
 
 from fgs_nerf_tpu_torch.core.box import SceneBox, grid_resolution, max_samples_per_ray
 from fgs_nerf_tpu_torch.device import DeviceLike, resolve_device
-from fgs_nerf_tpu_torch.models.mlp import init_mlp, refnet_dims, rgbnet_dims
+from fgs_nerf_tpu_torch.models.mlp import (
+    init_mlp, mlp_apply, refnet_dims, rgbnet_dims,
+)
 from fgs_nerf_tpu_torch.ops.cuda.fused_shade_cm import bf16_round, fused_shade_cm
-from fgs_nerf_tpu_torch.ops.encoding import freq_bank
-from fgs_nerf_tpu_torch.ops.ray_sample import ray_box_intersect
-from fgs_nerf_tpu_torch.ops.sdf2alpha import neus_alpha_from_cos
+from fgs_nerf_tpu_torch.ops.encoding import (
+    freq_bank, l2_normalize, reflect, sincos_encode,
+)
+from fgs_nerf_tpu_torch.ops.interp import (
+    _trilinear_sample_index_impl, center_gradient_taps, sample_sdf_taps,
+    trilinear_sample,
+)
+from fgs_nerf_tpu_torch.ops.ray_sample import (
+    ray_box_intersect, ray_norm, sample_along_rays,
+)
+from fgs_nerf_tpu_torch.ops.sdf2alpha import neus_alpha, neus_alpha_from_cos
 from fgs_nerf_tpu_torch.ops.sorted_cm import (
     corner_weights_cm, pack_gather_sorted_cm, padded_rows_cm, resort_channels,
     rows_fracs_cm, rows_to_coords_cm, sort_stream, tap_bounds,
     tap_deltas_weights, tap_gather_sorted_cm, unsort_channels,
 )
-from fgs_nerf_tpu_torch.ops.stencils import sdf_gradient_cm, smooth_grid
+from fgs_nerf_tpu_torch.ops.stencils import sdf_gradient, sdf_gradient_cm, smooth_grid
 from fgs_nerf_tpu_torch.ops.transmittance import alpha_to_weights
 
 
@@ -224,31 +236,6 @@ def k0_dense(params: Dict[str, Any], cfg: SDFModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _trilinear_sample_index(grid: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """8-corner trilinear interpolation at index-space coords, zero
-    outside the grid (`ops/interp.py:60-85`); grid [X, Y, Z, C]."""
-    sizes = torch.tensor(grid.shape[:3], dtype=torch.int64, device=grid.device)
-    flat = grid.reshape(-1, grid.shape[-1])
-    i0f = torch.floor(idx)
-    f = idx - i0f
-    i0 = i0f.long()
-    out = None
-    for ox in (0, 1):
-        for oy in (0, 1):
-            for oz in (0, 1):
-                off = torch.tensor((ox, oy, oz), device=grid.device)
-                ci = i0 + off
-                w = torch.prod(
-                    torch.where(off.bool(), f, 1.0 - f), dim=-1)
-                inb = torch.all((ci >= 0) & (ci < sizes), dim=-1)
-                cc = torch.minimum(torch.clamp(ci, min=0), sizes - 1)
-                lin = (cc[..., 0] * sizes[1] + cc[..., 1]) * sizes[2] + cc[..., 2]
-                v = flat[lin] * inb[..., None].to(flat.dtype)
-                term = w[..., None] * v
-                out = term if out is None else out + term
-    return out
-
-
 def build_mask_cache(sdf_mask: torch.Tensor, prior_xyz_min,
                      prior_xyz_max) -> Dict[str, torch.Tensor]:
     """MaskCache state: 3x3x3 max-pooled prior-stage sdf_mask
@@ -269,7 +256,8 @@ def mask_cache_query(mc: Dict[str, torch.Tensor], xyz: torch.Tensor,
     box = SceneBox(mc["xyz_min"], mc["xyz_max"])
     sizes = torch.tensor(mc["grid"].shape[:3], dtype=torch.float32,
                          device=xyz.device)
-    val = _trilinear_sample_index(mc["grid"], box.normalize(xyz) * (sizes - 1.0))
+    val = _trilinear_sample_index_impl(mc["grid"],
+                                       box.normalize(xyz) * (sizes - 1.0))
     return val[..., 0] >= thres
 
 
@@ -312,9 +300,11 @@ def _topk_select(weights: torch.Tensor, live: torch.Tensor, k: int):
 
 
 def _gather_slots(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """take_along_axis over the sample axis (`sdf_voxel.py:576-606`; the
-    JAX package writes it as a one-hot matmul only because the TPU lacks
-    a fast gather)."""
+    """take_along_axis over the sample axis for [N, S] or [N, S, C]
+    (`sdf_voxel.py:576-606`; the JAX package writes it as a one-hot
+    matmul only because the TPU lacks a fast gather)."""
+    if x.ndim == 3:
+        idx = idx[..., None].expand(-1, -1, x.shape[-1])
     return torch.gather(x, 1, idx)
 
 
@@ -413,15 +403,335 @@ def _shade_fine_cm(params, cfg: SDFModelConfig, rays_xyz, vd, normal, sdf, k0,
 
 def forward(params, buffers, cfg: SDFModelConfig, box: SceneBox, rays_o,
             rays_d, viewdirs, s_val, near: float, bg: float):
-    """Render dispatch (`sdf_voxel.py:608-641`); only the sorted engine
-    is ported (the fine stage takes it when its displacements include
-    1.0, as in the JAX package)."""
-    if cfg.engine != "sorted" or (
-            cfg.is_fine and not (cfg.all_displace and 1.0 in cfg.all_displace)):
-        raise NotImplementedError("the lattice engine is not ported yet")
-    fwd = forward_fine_sorted if cfg.is_fine else forward_coarse_sorted
+    """Render dispatch (`sdf_voxel.py:608-641`): the sorted engine when
+    ``cfg.engine == "sorted"`` (the fine stage only when its
+    displacements include 1.0), else the lattice engine."""
+    if cfg.is_fine:
+        if (cfg.engine == "sorted" and cfg.all_displace
+                and 1.0 in cfg.all_displace):
+            fwd = forward_fine_sorted
+        else:
+            fwd = forward_fine
+    else:
+        fwd = forward_coarse_sorted if cfg.engine == "sorted" else forward_coarse
     return fwd(params, buffers, cfg, box, rays_o, rays_d, viewdirs, s_val,
                near, bg)
+
+
+# ---------------------------------------------------------------------------
+# Lattice engine (`sdf_voxel.py:529-972`)
+# ---------------------------------------------------------------------------
+
+
+def _safe_norm(x: torch.Tensor) -> torch.Tensor:
+    """L2 norm over the last axis with a NaN-free gradient at 0
+    (`sdf_voxel.py:529-532`)."""
+    return torch.sqrt(torch.clamp(torch.sum(x**2, dim=-1, keepdim=True),
+                                  min=1e-24))
+
+
+def _pts_at_steps(rays_o, rays_d, t_min, steps, step_dist: float):
+    """World positions of lattice slots ``steps`` [N, k]
+    (`sdf_voxel.py:557-565`): the expression tree of
+    ``ops/ray_sample.py:sample_along_rays``, so the points are
+    bitwise-identical to the lattice points."""
+    d_norm = ray_norm(rays_d)
+    start = rays_o + rays_d * t_min[..., None]
+    dir_unit = rays_d / d_norm[..., None]
+    dist = steps * step_dist
+    return start[:, None, :] + dir_unit[:, None, :] * dist[..., None]
+
+
+def _remat(cfg: SDFModelConfig, fn, *args):
+    """``fn(*args)``, recomputed in the backward when ``cfg.shade_remat``
+    (``jax.checkpoint`` at `sdf_voxel.py:729-731`, `:888-890`)."""
+    if cfg.shade_remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
+
+def _lattice_samples(cfg: SDFModelConfig, box: SceneBox, rays_o, rays_d,
+                     near: float, valid_fn):
+    """The lattice, ``valid &= valid_fn(pts)`` for the mask buffers, and
+    the compaction to ``sample_k`` slots with recomputed points
+    (`sdf_voxel.py:653-670`, `:805-818`).  Returns (pts, valid, steps,
+    sample_overflow)."""
+    n = rays_o.shape[0]
+    rs = sample_along_rays(rays_o, rays_d, box, near, cfg.step_dist,
+                           cfg.s_max)
+    pts, valid = rs.pts, rs.valid
+    valid = valid_fn(pts, valid)
+    if 0 < cfg.sample_k < cfg.s_max:
+        valid, steps, sample_overflow = _compact_valid(valid, cfg.sample_k)
+        pts = _pts_at_steps(rays_o, rays_d, rs.t_min, steps, cfg.step_dist)
+    else:
+        steps = torch.arange(cfg.s_max, dtype=torch.float32,
+                             device=rays_o.device).expand(valid.shape)
+        sample_overflow = torch.zeros((n,), dtype=torch.bool,
+                                      device=rays_o.device)
+    return pts, valid, steps, sample_overflow
+
+
+def _composite(s_weights, rgb, w_full, bg: float):
+    """(rgb_marched, sigmoid_rgb, cum_weights) with the double sigmoid
+    (`sdf_voxel.py:733-745`)."""
+    cum_weights = torch.sum(w_full, dim=-1, keepdim=True)
+    rgb_marched = torch.clamp(
+        torch.sum(s_weights[..., None] * rgb, dim=1) + (1.0 - cum_weights) * bg,
+        0.0, 1.0)
+    sigmoid_rgb = torch.clamp(
+        torch.sum(s_weights[..., None] * torch.sigmoid(rgb), dim=1)
+        + (1.0 - cum_weights) * bg, 0.0, 1.0)
+    return rgb_marched, sigmoid_rgb, cum_weights
+
+
+def forward_coarse(params, buffers, cfg: SDFModelConfig, box: SceneBox,
+                   rays_o, rays_d, viewdirs, s_val, near: float,
+                   bg: float) -> Dict[str, torch.Tensor]:
+    """Geometry-searching / coarse render on the lattice
+    (`sdf_voxel.py:644-768`): the fused ``[sdf | grad | k0]`` trilinear
+    gather (cell-packed where worthwhile; backward kernel B7), NeuS alpha,
+    the double scan, top-``shade_k`` selection and the refnet head."""
+    n = rays_o.shape[0]
+    dev = rays_o.device
+
+    def valid_fn(pts, valid):
+        if cfg.stage == "coarse" and "mask_cache" in buffers:
+            valid = valid & mask_cache_query(buffers["mask_cache"], pts,
+                                             cfg.mask_cache_thres)
+        if "inc_lower" in buffers:
+            valid = valid & inc_mask_query(buffers["inc_lower"],
+                                           buffers["inc_upper"], pts, box,
+                                           cfg.world_size)
+        return valid
+
+    pts, valid, steps, sample_overflow = _lattice_samples(
+        cfg, box, rays_o, rays_d, near, valid_fn)
+
+    sdf_grid = params["sdf"]
+    if cfg.smooth_sdf:
+        sdf_grid = smooth_grid(sdf_grid, cfg.smooth_ksize, cfg.smooth_sigma)
+    # the gradient field comes from the raw sdf grid (`sdf_voxel.py:675`)
+    grad_field = sdf_gradient(params["sdf"], cfg.voxel_size, cfg.grad_mode)
+    field = torch.cat([sdf_grid, grad_field, k0_dense(params, cfg)], dim=-1)
+    samp = trilinear_sample(field, pts, box, packed=True)  # [N, S, 4 + k0_dim]
+    sdf = samp[..., 0]
+    gradient = samp[..., 1:4]
+    k0_all = samp[..., 4:]
+
+    dist = cfg.step_dist
+    alpha = neus_alpha(viewdirs, sdf, gradient, dist, s_val)
+    w1, _ = alpha_to_weights(alpha, valid)
+    if cfg.fast_color_thres > 0:
+        live = valid & (w1 > cfg.fast_color_thres)
+    else:
+        live = valid
+    weights, alphainv_last = alpha_to_weights(alpha, live)
+    normal = l2_normalize(gradient / (_safe_norm(gradient) + 1e-7))
+
+    if cfg.shade_k > 0:
+        idx, sel_live = _topk_select(weights, live, cfg.shade_k)
+        s_pack = _gather_slots(
+            torch.cat([pts, normal, k0_all, weights[..., None]], dim=-1), idx)
+        s_pts = s_pack[..., 0:3]
+        s_normal = s_pack[..., 3:6]
+        s_k0 = s_pack[..., 6:6 + cfg.k0_dim]
+        s_weights = s_pack[..., 6 + cfg.k0_dim] * sel_live
+        overflow = torch.sum(live, dim=-1) > cfg.shade_k
+    else:
+        s_pts, s_normal, s_k0 = pts, normal, k0_all
+        s_weights = weights * live
+        sel_live = live
+        overflow = torch.zeros((n,), dtype=torch.bool, device=dev)
+
+    viewdirs_pts = viewdirs[:, None, :].expand(s_pts.shape)
+    rgb = _remat(cfg, lambda *a: _shade_coarse(params, cfg, box, *a),
+                 s_pts, viewdirs_pts, s_normal, viewdirs, s_k0)
+
+    w_full = weights * live
+    rgb_marched, sigmoid_rgb, cum_weights = _composite(s_weights, rgb, w_full,
+                                                       bg)
+    depth = torch.sum(w_full * steps * dist, dim=-1).detach()
+    return {
+        "rgb_marched": rgb_marched,
+        "sigmoid_rgb": sigmoid_rgb,
+        "alphainv_cum": alphainv_last,
+        "cum_weights": cum_weights,
+        "normal_marched": torch.sum(w_full[..., None] * normal, dim=1),
+        "depth": depth,
+        "disp": 1.0 / torch.clamp(depth, min=1e-10),
+        "weights": w_full,
+        "normal": normal,
+        "live": live,
+        "valid": valid,
+        "sel_weights": s_weights,
+        "sel_rgb": rgb,
+        "sel_live": sel_live,
+        "overflow": overflow | sample_overflow,
+        "overflow_sample": sample_overflow,
+        "overflow_shade": overflow,
+        "s_val": s_val,
+    }
+
+
+def _vd_emb(cfg: SDFModelConfig, viewdirs, shape2):
+    """The per-ray view-direction encoding broadcast over the samples."""
+    emb = sincos_encode(viewdirs, freq_bank(cfg.viewbase_pe, viewdirs.device))
+    return emb[:, None, :].expand(*shape2, emb.shape[-1])
+
+
+def _shade_coarse(params, cfg: SDFModelConfig, box: SceneBox, pts,
+                  viewdirs_pts, normal, viewdirs, k0) -> torch.Tensor:
+    """Coarse shading head (`sdf_voxel.py:771-792`): refnet on
+    [k0, xyz_emb, reflect_emb, normal(, viewdirs_emb)] -> sigmoid."""
+    dev = pts.device
+    xyz_emb = sincos_encode(box.normalize(pts), freq_bank(cfg.posbase_pe, dev))
+    refl = reflect(viewdirs_pts, normal)
+    reflect_emb = sincos_encode(refl, freq_bank(cfg.refbase_pe, dev))
+    feats = [k0, xyz_emb, reflect_emb, normal]
+    if cfg.use_viewdir:
+        feats.append(_vd_emb(cfg, viewdirs, pts.shape[:2]))
+    if cfg.mlp_bf16:
+        # the casts mlp_apply would make, one feature at a time
+        feats = [f.to(torch.bfloat16) for f in feats]
+    out = mlp_apply(params["refnet"], torch.cat(feats, dim=-1),
+                    bf16=cfg.mlp_bf16)
+    return torch.sigmoid(out.float())
+
+
+def forward_fine(params, buffers, cfg: SDFModelConfig, box: SceneBox,
+                 rays_o, rays_d, viewdirs, s_val, near: float,
+                 bg: float) -> Dict[str, torch.Tensor]:
+    """Fine render on the lattice (`sdf_voxel.py:795-928`): the fused
+    ``[sdf | k0]`` gather, the displacement-1.0 center taps for alpha,
+    one scan, top-``shade_k`` selection, the hierarchical taps on the
+    selection (outside the remat boundary) and the rgbnet -> refnet head.
+    Each of the three trilinear gathers runs kernel B7 in its backward."""
+    n = rays_o.shape[0]
+    dev = rays_o.device
+
+    def valid_fn(pts, valid):
+        if "mask_cache" in buffers:
+            valid = valid & mask_cache_query(buffers["mask_cache"], pts,
+                                             cfg.mask_cache_thres)
+        return valid
+
+    pts, valid, steps, sample_overflow = _lattice_samples(
+        cfg, box, rays_o, rays_d, near, valid_fn)
+
+    sdf_grid = params["sdf"]
+    if cfg.smooth_sdf:
+        sdf_grid = smooth_grid(sdf_grid, cfg.smooth_ksize, cfg.smooth_sigma)
+    field = torch.cat([sdf_grid, k0_dense(params, cfg)], dim=-1)
+    samp = trilinear_sample(field, pts, box, packed=True)
+    sdf = samp[..., 0]
+    k0_all = samp[..., 1:]
+    gradient, _ = center_gradient_taps(sdf_grid, pts, box, cfg.voxel_size)
+
+    dist = cfg.step_dist
+    alpha = neus_alpha(viewdirs, sdf, gradient, dist, s_val)
+    # alpha threshold -> one scan -> weight threshold
+    if cfg.fast_color_thres > 0:
+        m1 = valid & (alpha > cfg.fast_color_thres)
+    else:
+        m1 = valid
+    weights, alphainv_last = alpha_to_weights(alpha, m1)
+    if cfg.fast_color_thres > 0:
+        live = m1 & (weights > cfg.fast_color_thres)
+    else:
+        live = m1
+    normal = l2_normalize(gradient / (_safe_norm(gradient) + 1e-7))
+    w_eff = weights * live
+
+    if cfg.shade_k > 0:
+        idx, sel_live = _topk_select(weights, live, cfg.shade_k)
+        s_pack = _gather_slots(
+            torch.cat([pts, sdf[..., None], normal, gradient, k0_all,
+                       weights[..., None]], dim=-1), idx)
+        s_pts = s_pack[..., 0:3]
+        s_sdf = s_pack[..., 3]
+        s_normal = s_pack[..., 4:7]
+        s_gradient = s_pack[..., 7:10]
+        s_k0 = s_pack[..., 10:10 + cfg.k0_dim]
+        s_weights = s_pack[..., 10 + cfg.k0_dim] * sel_live
+        overflow = torch.sum(live, dim=-1) > cfg.shade_k
+    else:
+        s_pts, s_sdf, s_normal, s_gradient = pts, sdf, normal, gradient
+        s_k0 = k0_all
+        s_weights = w_eff
+        sel_live = live
+        overflow = torch.zeros((n,), dtype=torch.bool, device=dev)
+
+    # hierarchical taps outside the remat boundary (a re-gather in the
+    # backward would double the dominant gather)
+    tap_feats = []
+    if cfg.all_displace:
+        all_feat, all_grad = sample_sdf_taps(
+            sdf_grid, s_pts, box, cfg.all_displace, cfg.voxel_size,
+            cfg.use_grad_norm)
+        d = len(cfg.all_displace)
+        tap_feats = [all_feat.reshape(*s_pts.shape[:2], 6 * d),
+                     all_grad.reshape(*s_pts.shape[:2], 3 * d)]
+    nt = len(tap_feats)
+    rgb = _remat(
+        cfg, lambda *a: _shade_fine(params, cfg, box, list(a[:nt]), *a[nt:]),
+        *tap_feats, s_pts, s_sdf, s_gradient, s_normal, viewdirs, s_k0)
+
+    rgb_marched, sigmoid_rgb, cum_weights = _composite(s_weights, rgb, w_eff,
+                                                       bg)
+    depth = torch.sum(w_eff * steps * dist, dim=-1).detach()
+    return {
+        "rgb_marched": rgb_marched,
+        "sigmoid_rgb": sigmoid_rgb,
+        "alphainv_cum": alphainv_last,
+        "cum_weights": cum_weights,
+        "normal_marched": torch.sum(w_eff[..., None] * normal, dim=1),
+        "depth": depth,
+        "disp": 1.0 / torch.clamp(depth, min=1e-10),
+        "weights": w_eff,
+        "normal": normal,
+        "live": live,
+        "valid": valid,
+        "sel_weights": s_weights,
+        "sel_rgb": rgb,
+        "sel_live": sel_live,
+        "overflow": overflow | sample_overflow,
+        "overflow_sample": sample_overflow,
+        "overflow_shade": overflow,
+        "s_val": s_val,
+    }
+
+
+def _shade_fine(params, cfg: SDFModelConfig, box: SceneBox, tap_feats, pts,
+                sdf, gradient, normal, viewdirs, k0) -> torch.Tensor:
+    """Fine shading (`sdf_voxel.py:931-972`): rgbnet on [k0, xyz_emb(,
+    viewdirs_emb)(, sdf), taps, tap gradients, center gradient], then
+    refnet on [rgb_feat, reflect_emb] -> sigmoid."""
+    dev = pts.device
+    feats = [k0, sincos_encode(box.normalize(pts),
+                               freq_bank(cfg.posbase_pe, dev))]
+    if cfg.use_viewdir:
+        feats.append(_vd_emb(cfg, viewdirs, pts.shape[:2]))
+    if cfg.center_sdf:
+        feats.append(sdf[..., None])
+    feats.extend(tap_feats)
+    feats.append(gradient)
+    if cfg.mlp_bf16:
+        feats = [f.to(torch.bfloat16) for f in feats]
+    rgb_feat = mlp_apply(params["rgbnet"], torch.cat(feats, dim=-1),
+                         bf16=cfg.mlp_bf16)
+    refl = reflect(viewdirs[:, None, :].expand(pts.shape), normal)
+    reflect_emb = sincos_encode(refl, freq_bank(cfg.refbase_pe, dev))
+    dt = torch.bfloat16 if cfg.mlp_bf16 else torch.float32
+    ref_feat = torch.cat([rgb_feat.to(dt), reflect_emb.to(dt)], dim=-1)
+    out = mlp_apply(params["refnet"], ref_feat, bf16=cfg.mlp_bf16)
+    return torch.sigmoid(out.float())
+
+
+# ---------------------------------------------------------------------------
+# Sorted channel-major engine (`sdf_voxel.py:980-1633`)
+# ---------------------------------------------------------------------------
 
 
 def _lattice(cfg: SDFModelConfig, box: SceneBox, rays_o, rays_d, near: float):
@@ -431,7 +741,7 @@ def _lattice(cfg: SDFModelConfig, box: SceneBox, rays_o, rays_d, near: float):
     any step ids with the same expressions."""
     n = rays_o.shape[0]
     t_min, t_max = ray_box_intersect(rays_o, rays_d, box, near, 1e9)
-    d_norm = torch.sqrt(torch.sum(rays_d * rays_d, dim=-1))
+    d_norm = ray_norm(rays_d)
     n_steps = torch.clamp(
         torch.ceil((t_max - t_min) * d_norm / cfg.step_dist), min=1.0
     ).to(torch.int32)
@@ -751,13 +1061,8 @@ def forward_coarse_sorted(params, buffers, cfg: SDFModelConfig, box: SceneBox,
         (b1 - 1.0 + fy_s) / (sizes[1] - 1.0),
         (b2 - 1.0 + fz_s) / (sizes[2] - 1.0),
     )
-    shade_args = (rays_xyz_s, (vx_s, vy_s, vz_s), (nx, ny, nz), k0_s)
-    if cfg.shade_remat:
-        rgb_s = torch.utils.checkpoint.checkpoint(
-            lambda *a: _shade_coarse_cm(params, cfg, *a), *shade_args,
-            use_reentrant=False)
-    else:
-        rgb_s = _shade_coarse_cm(params, cfg, *shade_args)
+    rgb_s = _remat(cfg, lambda *a: _shade_coarse_cm(params, cfg, *a),
+                   rays_xyz_s, (vx_s, vy_s, vz_s), (nx, ny, nz), k0_s)
 
     unsorted = unsort_channels(
         iota_s, torch.stack([alpha_s, rgb_s[0], rgb_s[1], rgb_s[2], ndv_s]))

@@ -1,8 +1,7 @@
 """Positional encodings and mirror reflection.
 
-Port of ``fgs_nerf_tpu/ops/encoding.py:19-40`` without ``sincos_encode``
-(the channel-major shading builds its encodings in place) and the IDE,
-which no forward calls.
+Port of ``fgs_nerf_tpu/ops/encoding.py:19-40`` without the IDE, which no
+forward calls.
 """
 from __future__ import annotations
 
@@ -14,6 +13,13 @@ def freq_bank(n: int, device=None) -> torch.Tensor:
     """[2^0, ..., 2^(n-1)] (`ops/encoding.py:19-21`)."""
     return torch.tensor([2.0**i for i in range(n)], dtype=torch.float32,
                         device=device)
+
+
+def sincos_encode(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
+    """[..., D] -> [..., D + 2*D*F]: identity, then sin and cos with all
+    frequencies of a component contiguous (`ops/encoding.py:24-29`)."""
+    xf = (x[..., None] * freqs).reshape(*x.shape[:-1], -1)
+    return torch.cat([x, torch.sin(xf), torch.cos(xf)], dim=-1)
 
 
 def reflect(viewdirs: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:

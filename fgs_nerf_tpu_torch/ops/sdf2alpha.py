@@ -15,6 +15,14 @@ def s_val_schedule(global_step, s_ratio: float, s_start: float,
     return s_ratio / (step + s_ratio / s_start - step_start)
 
 
+def neus_alpha(viewdirs: torch.Tensor, sdf: torch.Tensor,
+               gradients: torch.Tensor, dist, s_val) -> torch.Tensor:
+    """Per-sample opacity on the [N, S] lattice (`ops/sdf2alpha.py:25-41`):
+    viewdirs [N, 3], sdf [N, S], gradients [N, S, 3]."""
+    true_cos = torch.sum(viewdirs[:, None, :] * gradients, dim=-1)
+    return neus_alpha_from_cos(true_cos, sdf, dist, s_val)
+
+
 def neus_alpha_from_cos(true_cos, sdf, dist, s_val) -> torch.Tensor:
     """Elementwise NeuS alpha (`ops/sdf2alpha.py:44-55`): half-step SDF
     extrapolation along ``iter_cos = -relu(-cos)`` and the clipped

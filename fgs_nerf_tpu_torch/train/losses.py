@@ -1,8 +1,9 @@
 """Training losses.
 
-Port of ``fgs_nerf_tpu/train/losses.py:19-137`` over the render dict of
-the sorted engine (``models.sdf_voxel.forward_coarse_sorted`` and
-``forward_fine_sorted``).
+Port of ``fgs_nerf_tpu/train/losses.py:19-137`` over the render dicts of
+both engines: the sorted engine hands over the shaded rgb as three
+[N, S] planes (``sel_rgb_ch``) and n.v per sample (``ndv``), the lattice
+engine ``sel_rgb`` [N, K, 3] and ``normal`` [N, S, 3].
 """
 from __future__ import annotations
 
@@ -47,10 +48,14 @@ def compute_losses(render: Dict[str, Any], target: torch.Tensor,
     loss = w.weight_main * main
 
     if w.weight_rgbper > 0:
-        diff = sum(
-            (ch - target[:, a:a + 1]) ** 2
-            for a, ch in enumerate(render["sel_rgb_ch"])
-        )
+        if "sel_rgb_ch" in render:
+            diff = sum(
+                (ch - target[:, a:a + 1]) ** 2
+                for a, ch in enumerate(render["sel_rgb_ch"])
+            )
+        else:
+            diff = torch.sum((render["sel_rgb"] - target[:, None, :]) ** 2,
+                             dim=-1)
         rgbper = torch.sum(diff * render["sel_weights"].detach()) / n_rays
         losses["rgbper"] = rgbper
         loss = loss + w.weight_rgbper * rgbper
@@ -62,8 +67,12 @@ def compute_losses(render: Dict[str, Any], target: torch.Tensor,
         loss = loss + w.weight_entropy_last * ent
 
     if w.weight_orientation > 0:
+        if "ndv" in render:
+            ndv = render["ndv"]
+        else:
+            ndv = torch.sum(render["normal"] * (-viewdirs[:, None, :]), dim=-1)
         ori = torch.sum(render["weights"].detach()
-                        * torch.clamp(render["ndv"], max=0.0) ** 2)
+                        * torch.clamp(ndv, max=0.0) ** 2)
         losses["orientation"] = ori
         loss = loss + w.weight_orientation * ori
 

@@ -1,4 +1,6 @@
-"""The train step of the sorted engine's stages (geometry, coarse, fine).
+"""The train step of every stage (geometry, coarse, fine) on either
+engine: ``models.sdf_voxel.forward`` chooses the sorted or the lattice
+engine from the config.
 
 Port of ``make_train_step`` (``fgs_nerf_tpu/train/trainer.py:117-212``)
 without the dp ``shard_map`` and the spatial ``gather_fn``: one step is

@@ -35,6 +35,13 @@ def test_port_imports_no_jax():
                  "fgs_nerf_tpu_torch.ops.cuda.scatter_combine_cm",
                  "fgs_nerf_tpu_torch.ops.cuda.fused_shade_cm",
                  "fgs_nerf_tpu_torch.ops.cuda.tap_serve_cm",
+                 "fgs_nerf_tpu_torch.ops.cuda.scatter_combine",
+                 "fgs_nerf_tpu_torch.ops.interp",
+                 "fgs_nerf_tpu_torch.ops.scatter",
+                 "fgs_nerf_tpu_torch.data.rays",
+                 "fgs_nerf_tpu_torch.data.synthetic",
+                 "fgs_nerf_tpu_torch.eval.metrics",
+                 "fgs_nerf_tpu_torch.eval.render",
                  "fgs_nerf_tpu_torch.convert"):
         assert name in res["modules"]
 
@@ -47,6 +54,8 @@ def test_entry_points_default_to_the_card():
     assert resolve_device("cpu") == torch.device("cpu")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+    assert (torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+            is False)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             resolve_device(None)
@@ -54,11 +63,12 @@ def test_entry_points_default_to_the_card():
 
 def test_kernel_sources_and_wrappers():
     from fgs_nerf_tpu_torch.ops.cuda import (
-        fused_shade_cm, scatter_combine_cm, tap_serve_cm, window_gather_cm,
+        fused_shade_cm, scatter_combine, scatter_combine_cm, tap_serve_cm,
+        window_gather_cm,
     )
 
     for mod in (window_gather_cm, scatter_combine_cm, fused_shade_cm,
-                tap_serve_cm):
+                tap_serve_cm, scatter_combine):
         k = mod.KERNEL
         assert k.source.exists(), k.source
         text = k.source.read_text()

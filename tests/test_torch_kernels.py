@@ -24,8 +24,10 @@ import torch
 
 from fgs_nerf_tpu_torch.core.box import SceneBox
 from fgs_nerf_tpu_torch.models import sdf_voxel as M
+from fgs_nerf_tpu_torch.ops import scatter as SC
 from fgs_nerf_tpu_torch.ops import sorted_cm as ST
 from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
+from fgs_nerf_tpu_torch.ops.cuda import scatter_combine as B7
 from fgs_nerf_tpu_torch.ops.cuda import scatter_combine_cm as B2
 from fgs_nerf_tpu_torch.ops.cuda import tap_serve_cm as B56
 from fgs_nerf_tpu_torch.ops.cuda import window_gather_cm as B1
@@ -45,10 +47,12 @@ def cuda():
 
 @contextlib.contextmanager
 def plain_twins():
-    """Route the six kernel call sites to their plain twins."""
+    """Route the seven kernel call sites to their plain twins."""
     saved = (ST.window_gather_cm, ST.dense_accumulate_cm,
              ST.tap_window_serve_cm, ST.tap_dense_accumulate_cm,
-             FS.fused_shade_cm_fwd, FS.fused_shade_cm_bwd)
+             FS.fused_shade_cm_fwd, FS.fused_shade_cm_bwd,
+             SC.dense_accumulate)
+    SC.dense_accumulate = B7.dense_accumulate_plain
     ST.window_gather_cm = B1.window_gather_cm_plain
     ST.dense_accumulate_cm = B2.dense_accumulate_cm_plain
     ST.tap_window_serve_cm = B56.tap_window_serve_cm_plain
@@ -60,7 +64,8 @@ def plain_twins():
     finally:
         (ST.window_gather_cm, ST.dense_accumulate_cm,
          ST.tap_window_serve_cm, ST.tap_dense_accumulate_cm,
-         FS.fused_shade_cm_fwd, FS.fused_shade_cm_bwd) = saved
+         FS.fused_shade_cm_fwd, FS.fused_shade_cm_bwd,
+         SC.dense_accumulate) = saved
 
 
 def _rel_l2(a, b):
@@ -276,3 +281,82 @@ def test_fine_step_kernels_match_plain(cuda):
     for net in ("rgbnet", "refnet"):
         for name in gk[net]:
             assert _rel_l2(gk[net][name], gp[net][name]) < 1e-3
+
+
+@pytest.mark.parametrize("c", [8, 104, 128])
+def test_b7_matches_plain(cuda, c):
+    """Sorted rows with gaps, duplicates, a 3,000-sample run (past the
+    2 x CHUNK threshold) and the last row of the space."""
+    rng = np.random.default_rng(c)
+    cap, m = 50000, 30000
+    rows = np.sort(rng.integers(0, cap, size=m))
+    rows[:600] = rows[600]                   # a run of ~600: block sums
+    rows[10000:13000] = rows[10000]          # a 3,000-sample run
+    rows[-5:] = cap - 1
+    rows = np.sort(rows).astype(np.int32)
+    upd = rng.normal(size=(m, c)).astype(np.float32)
+    cpu = (torch.from_numpy(rows), torch.from_numpy(upd))
+    r, u = (a.to(cuda) for a in cpu)
+    n0 = B7.KERNEL.launches["dense_accumulate"]
+    got = B7.dense_accumulate(r, u, cap)
+    torch.cuda.synchronize()
+    assert B7.KERNEL.launches["dense_accumulate"] == n0 + 1
+    assert got.shape == (cap, c) and got.dtype == torch.float32
+    want_cpu = B7.dense_accumulate_plain(*cpu, cap)
+    counts = np.bincount(rows, minlength=cap)
+    short = counts <= 2 * B7.CHUNK
+    assert (~short).sum() == 2 and (counts == 0).any()
+    assert torch.equal(got.cpu()[short], want_cpu[short])
+    scale = float(want_cpu.abs().max())
+    assert float((got.cpu() - want_cpu).abs().max()) <= 1e-4 * scale
+    want = B7.dense_accumulate_plain(r, u, cap)
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+    assert torch.equal(got, B7.dense_accumulate(r, u, cap))
+
+
+@pytest.mark.parametrize("stage", ["coarse", "fine"])
+def test_lattice_step_kernels_match_plain(cuda, stage):
+    """A small lattice step (20^3 grid, 256 rays) through B7 and through
+    its plain twin: one B7 call per coarse step, three per fine step."""
+    d = (0.5, 1.0, 1.5, 2.0)
+    extra = (dict(k0_dim=12, refnet_width=64, refnet_depth=3,
+                  smooth_ksize=5, smooth_sigma=0.8, shade_k=24)
+             if stage == "coarse" else
+             dict(k0_dim=12, rgbnet_width=64, rgbnet_depth=3, refnet_width=64,
+                  refnet_depth=3, grad_feat=d, sdf_feat=d, shade_k=24))
+    cfg = M.make_model_config(
+        stage=stage, xyz_min=[-1, -1, -1], xyz_max=[1, 1, 1],
+        num_voxels=20**3, num_voxels_base=20**3, stepsize=0.5, posbase_pe=5,
+        viewbase_pe=1, refbase_pe=5, s_start=0.2, sample_k=48,
+        shade_remat=False, engine="lattice", **extra)
+    params = M.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                           cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    params["k0"] = torch.randn(params["k0"].shape, generator=gen,
+                               device=cuda) * 0.3
+    n = 256
+    rays_o = torch.tensor([0.0, 0.1, 2.6], device=cuda).expand(n, 3).contiguous()
+    look = torch.randn((n, 3), generator=gen, device=cuda) * 0.4
+    rays_d = look - rays_o
+    viewdirs = rays_d / rays_d.norm(dim=-1, keepdim=True)
+    target = torch.rand((n, 3), generator=gen, device=cuda)
+    box = SceneBox.create([-1, -1, -1], [1, 1, 1], cuda)
+    fn = make_loss_and_grads(
+        cfg, box, LossWeights(weight_main=1.0, weight_entropy_last=1e-3,
+                              weight_orientation=1e-4, sigmoid_rgb_loss=0.02,
+                              weight_tv_density=0.01),
+        near=0.2, bg=1.0, sdf_tv=0.1, smooth_grad_tv=0.05,
+        use_nonempty_mask=False)
+    args = (params, {}, rays_o, rays_d, viewdirs, target,
+            torch.tensor(0.2, device=cuda), 1.0)
+    n0 = B7.KERNEL.launches["dense_accumulate"]
+    _, lk, gk = fn(*args)
+    torch.cuda.synchronize()
+    assert B7.KERNEL.launches["dense_accumulate"] == n0 + (
+        1 if stage == "coarse" else 3)
+    with plain_twins():
+        _, lp, gp = fn(*args)
+    assert torch.isfinite(lk["loss"])
+    torch.testing.assert_close(lk["loss"], lp["loss"], rtol=1e-4, atol=0)
+    for name in ("sdf", "k0"):
+        assert _rel_l2(gk[name], gp[name]) < 1e-3

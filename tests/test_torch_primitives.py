@@ -217,7 +217,7 @@ def test_compact_valid_and_masks():
                                      (10, 11, 12))))
 
 
-def test_init_params_layout():
+def test_init_params_layout(monkeypatch):
     cfg = MT.make_model_config(
         stage="coarse", xyz_min=[-1, -1, -1], xyz_max=[1, 1, 1],
         num_voxels=12**3, num_voxels_base=12**3, stepsize=0.5,
@@ -238,6 +238,11 @@ def test_init_params_layout():
                               pj["refnet"]["w" + k[1:]].shape[0])
         assert float(p["refnet"][k].abs().max()) <= bound
     assert MLPT.refnet_dims(90, 192, 3) == [90, 192, 192, 3]
-    with pytest.raises(NotImplementedError):
-        MT.forward(p, {}, cfg.__class__(**{**cfg.__dict__, "engine": "lattice"}),
-                   None, None, None, None, None, 0.2, 1.0)
+    # the same parameters serve the lattice engine, which forward picks
+    # for engine="lattice"
+    seen = []
+    monkeypatch.setattr(MT, "forward_coarse",
+                        lambda params, buffers, c, *a: seen.append(c.engine))
+    MT.forward(p, {}, cfg.__class__(**{**cfg.__dict__, "engine": "lattice"}),
+               None, None, None, None, None, 0.2, 1.0)
+    assert seen == ["lattice"]
