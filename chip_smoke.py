@@ -6,9 +6,9 @@ and check it.  Run from the repository root with no arguments:
 
 Phases (any failure raises and exits nonzero, with no result line):
 
-1. Build: compile every CUDA kernel of the coarse and fine train steps
-   from ``fgs_nerf_tpu_torch/csrc`` (one ``nvcc`` per source, in
-   parallel) and print the card's name and power limit.
+1. Build: compile every CUDA kernel of the port (B1-B9) from
+   ``fgs_nerf_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel)
+   and print the card's name and power limit.
 2. Kernel checks: run one coarse step at the ``bench.py`` configuration
    (8,192 rays, 114^3 grid, sample_k 288 -> M = 2,359,296 samples,
    refnet 90 -> 192 -> 192 -> 3) and keep the inputs each kernel wrapper
@@ -63,6 +63,35 @@ the engine of every evaluation), whose grid-gradient accumulate is B7:
     ``eval/render.py`` with the fine parameters left by phase 11: PSNR,
     SSIM, seconds per view and rays/s; every pixel finite and in [0, 1].
 
+The fused channel-major MLP (kernels B8/B9, which no training path
+launches) and the whole training pipeline:
+
+13. B8/B9: record the feature blocks and weights that the rgbnet and the
+    refnet receive in one sorted fine step at the ``_fine_workload``
+    shapes (M = 1,048,576 shading samples), run ``ops/fused_mlp_cm.py:
+    fused_mlp_cm`` forward and backward on them through the kernels (the
+    op is B8/B9's path: zero the counts, run, read), hold each kernel
+    against its plain twin, repeat, time, bound; beside the kernel, the
+    bf16 ``torch.matmul`` chain of ``models/mlp.py:mlp_apply`` on the same
+    inputs (a chain, not one library call).  Controls: the twins with a
+    bf16 rounding left out (hiddens, or each layer's ``dz``) must fail
+    the tolerances that the kernels pass.
+14. Pipeline: ``python -m fgs_nerf_tpu_torch.run --mode train`` in process
+    on a config derived from ``full_synthetic`` (the shiny_blender widths,
+    40 views of 256 x 256, 3 test views, 8,192 rays per step) with only
+    the depth cut (geometry 16 steps over its 7 rungs, coarse 14 over its
+    6, fine 6 with one rung at step 3): per stage the wall time, the last
+    rung's step time (each step followed by a synchronize), world size,
+    the mask-cache ray filter's kept share, peak memory, launches by
+    kernel and checkpoint write time; then the test-view render, PSNR,
+    SSIM and the 512^3 mesh.  Every kernel call of the first step at each
+    stage's last rung is recorded (bbox-shrunk grids, mask-cache-filtered
+    rays, the geometry stage's 128-wide refnet) and held against its twin
+    as in phases 2 and 5, timed and bounded.  Checks: finite losses and
+    PSNR, every checkpoint loads with its stage's voxel budget, every
+    kernel of each stage's path launched, a non-empty mesh, rendered
+    pixels in [0, 1].
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -73,7 +102,18 @@ largest value), and B2 / B6 must repeat bit for bit; so must B7, whose
 twin is ``index_add_`` as well; B3/B4 share every
 bf16 rounding with their twins but sum in another order, so a hidden
 value can land one bf16 ulp away (logits: max 1e-2, at most 1% past
-1e-5; cotangents: relative L2 1e-3).  Whole-step losses: relative 1e-4;
+1e-5; cotangents: relative L2 1e-3); B8 likewise; B9's cotangents, dW
+and db agree to relative L2 2.5e-3 (not 1e-3) on the fine head's 4-layer
+nets: the same function summed in float64 instead of float32, bf16
+roundings kept, already moves them by about 1e-3 (``tests/
+test_torch_fused_mlp.py::test_deep_net_cotangents_move_with_the_sum_order``),
+as each one-ulp landing of a rounded cotangent propagates down the
+layers.  Leaving the ``dz`` rounding out moves them by only about 3.5e-3,
+so B9 is also held to at most 5% of dx entries more than 1e-4 of dx's
+RMS away from the twin: a one-ulp landing moves a few samples' dx, a
+rounding left out most samples'.  The phase 13 controls must fail that
+check; dW / db repeat bit for bit.
+Whole-step losses: relative 1e-4;
 gradients: relative L2 1e-2; post-Adam parameters where |g| > 1e-5:
 1e-4 (Adam's first step is lr * g / (|g| + 1e-8), steep where |g| is
 small).
@@ -91,6 +131,9 @@ PEAK_F32_FLOPS = 67e12       # fp32 outside the tensor cores
 N_WARMUP = 2
 N_STEPS = 10
 N_FINE_STEPS = 4
+MLP_FLIP_SHARE = 0.01   # B8 outputs allowed past 1e-5 (see above)
+MLP_REL_L2 = 2.5e-3     # B9 outputs against the twin (see above)
+MLP_DX_SHARE = 0.05     # B9 dx entries allowed past 1e-4 of its RMS
 
 
 XYZ_MIN = (-1.0, -1.0, -1.0)
@@ -211,6 +254,23 @@ def _rel_l2(a, b):
                  / b.double().norm().clamp_min(1e-30))
 
 
+def _b9_outputs(bwd):
+    """B9's (dx, dW list, db list) -> [dx, dW..., db...]."""
+    dx, dws, dbs = bwd
+    return [dx, *dws, *dbs]
+
+
+def _b9_readings(outs, ref):
+    """(the worst relative L2 over B9's outputs, the share of dx entries
+    more than 1e-4 of the reference dx's RMS away).  A bf16 value that
+    lands one ulp away moves the dx of a few samples; a rounding left out
+    moves nearly every sample's."""
+    dx, dx_ref = outs[0].double(), ref[0].double()
+    far = (dx - dx_ref).abs() > 1e-4 * dx_ref.pow(2).mean().sqrt()
+    return (max(_rel_l2(a, b) for a, b in zip(outs, ref)),
+            float(far.double().mean()))
+
+
 _BUCKETS = (  # kernel-name fragments -> bucket, first match wins
     ("accumulate B7", ("rowmajor_",)),
     ("serve B5", ("tap_window_serve",)),
@@ -264,11 +324,13 @@ def _device_breakdown(torch, run_step, step_ms, card, path="coarse"):
     }))
 
 
-def _clone(a, torch):
+def _clone(a, torch, device=None):
+    """A copy of the tensors in ``a`` (nested lists / tuples), on
+    ``device`` if given, else where they are."""
     if isinstance(a, torch.Tensor):
-        return a.detach().clone()
+        return a.detach().to(device, copy=True)
     if isinstance(a, (list, tuple)):
-        return type(a)(_clone(x, torch) for x in a)
+        return type(a)(_clone(x, torch, device) for x in a)
     return a
 
 
@@ -393,6 +455,129 @@ def _check_accumulate(torch, name, fn, plain, args, keys, library, n_flops,
                 library_ms=_time_ms(library, 2, torch))
 
 
+def _mlp_bwd_flops(ws, m):
+    """Operations of an MLP backward over ``m`` samples: the hidden
+    layers' forward products recomputed (the last layer's ``dz`` is the
+    given ``g``), then a dW and a dx product for every layer."""
+    macs = [w.shape[0] * w.shape[1] for w in ws]
+    return 2 * m * (sum(macs[:-1]) + 2 * sum(macs))
+
+
+def _check_shade_fwd(torch, args, path):
+    """B3: within 1e-2 of its twin with at most 1% of the logits past
+    1e-5; timed; bound by its products at the bf16 peak."""
+    from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
+
+    k0, xyz, refl, normal, vd, ws, bs, *pe = args
+    ins = (k0, xyz, refl, normal, vd)
+    m = k0.shape[-1]
+    got = FS.fused_shade_cm_fwd(*ins, ws, bs, *pe)
+    want = FS.fused_shade_cm_fwd_plain(*ins, ws, bs, *pe)
+    diff = (got - want).abs()
+    err = float(diff.max())
+    frac = float((diff > 1e-5).float().mean())
+    _check(err < 1e-2 and frac < 0.01,
+           f"B3 ({path}): max {err}, past 1e-5 {frac}")
+    macs = sum(w.shape[0] * w.shape[1] for w in ws)
+    bound = _bound(_nbytes(*ins, *ws, *bs, got), 2 * macs * m,
+                   PEAK_BF16_FLOPS)
+    del got, want, diff
+    return dict(path=path, hidden=ws[0].shape[1], m=m, max_abs_err=err,
+                share_past_1e5=frac,
+                ms=_time_ms(lambda: FS.fused_shade_cm_fwd(*ins, ws, bs, *pe),
+                            5, torch),
+                plain_ms=_time_ms(
+                    lambda: FS.fused_shade_cm_fwd_plain(*ins, ws, bs, *pe), 3,
+                    torch),
+                bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+
+
+def _check_shade_bwd(torch, args, path):
+    """B4: every cotangent, dW and db within relative L2 1e-3 of its
+    twin, dW bit-equal on a repeat; timed; bound as ``_mlp_bwd_flops``."""
+    from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
+
+    k0, xyz, refl, normal, vd, ws, bs, g, *pe = args
+    ins = (k0, xyz, refl, normal, vd)
+    m = k0.shape[-1]
+    d_k, dw_k, db_k = FS.fused_shade_cm_bwd(*ins, ws, bs, g, *pe)
+    d_p, dw_p, db_p = FS.fused_shade_cm_bwd_plain(*ins, ws, bs, g, *pe)
+    err, rel_max = 0.0, 0.0
+    for a, b in zip(list(d_k) + dw_k + db_k, list(d_p) + dw_p + db_p):
+        if b is None:
+            continue
+        rel = _rel_l2(a, b)
+        _check(rel < 1e-3, f"B4 ({path}) cotangent off by rel L2 {rel}")
+        err = max(err, float((a - b).abs().max()))
+        rel_max = max(rel_max, rel)
+    again = FS.fused_shade_cm_bwd(*ins, ws, bs, g, *pe)
+    _check(all(torch.equal(a, b) for a, b in zip(dw_k, again[1])),
+           f"B4 ({path}) dW is not deterministic")
+    out_bytes = _nbytes(*[d for d in d_k if d is not None], *dw_k, *db_k)
+    bound = _bound(_nbytes(*ins, *ws, *bs, g) + out_bytes,
+                   _mlp_bwd_flops(ws, m), PEAK_BF16_FLOPS)
+    del d_k, dw_k, db_k, d_p, dw_p, db_p, again
+    torch.cuda.empty_cache()
+    return dict(path=path, hidden=ws[0].shape[1], m=m, max_abs_err=err,
+                max_rel_l2=rel_max,
+                ms=_time_ms(lambda: FS.fused_shade_cm_bwd(*ins, ws, bs, g, *pe),
+                            3, torch),
+                plain_ms=_time_ms(
+                    lambda: FS.fused_shade_cm_bwd_plain(*ins, ws, bs, g, *pe),
+                    2, torch),
+                bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+
+
+def _check_call(torch, name, args, path):
+    """Hold one recorded call of the kernel call site ``name`` (a
+    function of ``ops/sorted_cm.py`` or ``ops/cuda/fused_shade_cm.py``)
+    against its twin; time and bound it."""
+    from fgs_nerf_tpu_torch.ops.cuda import scatter_combine_cm as B2
+    from fgs_nerf_tpu_torch.ops.cuda import tap_serve_cm as B56
+    from fgs_nerf_tpu_torch.ops.cuda import window_gather_cm as B1
+
+    if name == "fused_shade_cm_fwd":
+        return _check_shade_fwd(torch, args, path)
+    if name == "fused_shade_cm_bwd":
+        return _check_shade_bwd(torch, args, path)
+    if name == "window_gather_cm":
+        pack, rows, w8 = args
+        touched = _touched_bytes(torch, torch.stack([rows, rows + 1]),
+                                 pack.shape[1], pack.shape[0])
+        return _check_serve(torch, name, B1.window_gather_cm,
+                            B1.window_gather_cm_plain, args, touched,
+                            16 * (pack.shape[0] // 4) * rows.numel(), path)
+    if name == "tap_window_serve_cm":
+        pack, rows, delta, w8t = args
+        cols = rows[None, :] + delta
+        touched = _touched_bytes(torch, torch.stack([cols, cols + 1]),
+                                 pack.shape[1], 4)
+        return _check_serve(torch, name, B56.tap_window_serve_cm,
+                            B56.tap_window_serve_cm_plain, args, touched,
+                            16 * delta.numel(), path)
+    if name == "dense_accumulate_cm":
+        rows, w8, g, n_rows = args
+        upd0, upd1 = B2.dense_updates(w8, g)
+        idx = torch.cat([rows, rows + 1]).long()
+        upd = torch.cat([upd0, upd1], dim=1)
+        del upd0, upd1
+        return _check_accumulate(
+            torch, name, B2.dense_accumulate_cm,
+            B2.dense_accumulate_cm_plain, args, rows,
+            lambda: torch.zeros((4 * g.shape[0], n_rows),
+                                device=g.device).index_add_(1, idx, upd),
+            16 * g.shape[0] * rows.numel(), path)
+    rows, delta, w8t, g, n_rows = args
+    idx, upd = B56.tap_updates(rows, delta, w8t, g)
+    return _check_accumulate(
+        torch, name, B56.tap_dense_accumulate_cm,
+        B56.tap_dense_accumulate_cm_plain, args,
+        (rows[None, :] + delta).reshape(-1),
+        lambda: torch.zeros((4, n_rows), device=g.device).index_add_(
+            1, idx, upd),
+        16 * delta.numel(), path)
+
+
 def _fine_phases(torch, np, card, dev, batch, n_rand):
     """Phases 5-8 at the ``bench.py:_fine_workload`` configuration.
     Returns (per-kernel lists of checked calls, main-path launch counts,
@@ -444,49 +629,11 @@ def _fine_phases(torch, np, card, dev, batch, n_rand):
             return "fine pass 1" if args[1].shape[-1] == m1 else "fine pass 2"
         return "fine z/y taps" if n_taps == 4 * len(displace) else "fine x taps"
 
-    def check(name, args, path):
-        if name == "window_gather_cm":
-            pack, rows, w8 = args
-            touched = _touched_bytes(torch, torch.stack([rows, rows + 1]),
-                                     pack.shape[1], pack.shape[0])
-            return _check_serve(torch, name, B1.window_gather_cm,
-                                B1.window_gather_cm_plain, args, touched,
-                                16 * (pack.shape[0] // 4) * rows.numel(), path)
-        if name == "tap_window_serve_cm":
-            pack, rows, delta, w8t = args
-            cols = rows[None, :] + delta
-            touched = _touched_bytes(torch, torch.stack([cols, cols + 1]),
-                                     pack.shape[1], 4)
-            return _check_serve(torch, name, B56.tap_window_serve_cm,
-                                B56.tap_window_serve_cm_plain, args, touched,
-                                16 * delta.numel(), path)
-        if name == "dense_accumulate_cm":
-            rows, w8, g, n_rows = args
-            upd0, upd1 = B2.dense_updates(w8, g)
-            idx = torch.cat([rows, rows + 1]).long()
-            upd = torch.cat([upd0, upd1], dim=1)
-            del upd0, upd1
-            return _check_accumulate(
-                torch, name, B2.dense_accumulate_cm,
-                B2.dense_accumulate_cm_plain, args, rows,
-                lambda: torch.zeros((4 * g.shape[0], n_rows),
-                                    device=g.device).index_add_(1, idx, upd),
-                16 * g.shape[0] * rows.numel(), path)
-        rows, delta, w8t, g, n_rows = args
-        idx, upd = B56.tap_updates(rows, delta, w8t, g)
-        return _check_accumulate(
-            torch, name, B56.tap_dense_accumulate_cm,
-            B56.tap_dense_accumulate_cm_plain, args,
-            (rows[None, :] + delta).reshape(-1),
-            lambda: torch.zeros((4, n_rows), device=g.device).index_add_(
-                1, idx, upd),
-            16 * delta.numel(), path)
-
     def check_all(calls, suffix=""):
         out = {}
         for name in list(calls):
             for args in calls[name]:
-                r = check(name, args, label(name, args) + suffix)
+                r = _check_call(torch, name, args, label(name, args) + suffix)
                 out.setdefault(name, []).append(r)
                 print(json.dumps({"kernel": name, **r, "card": card}))
             del calls[name]
@@ -763,6 +910,393 @@ def _eval_phase(torch, np, card, fine_state):
            "the eval render ran a backward")
 
 
+def _mlp_phase(torch, np, card, dev, batch, n_rand):
+    """Phase 13: B8/B9 on the fine shading head's own inputs.  Returns
+    (the kernel rows' call records, launches on the op's path)."""
+    from fgs_nerf_tpu_torch.models import mlp as MLP
+    from fgs_nerf_tpu_torch.models import sdf_voxel as M
+    from fgs_nerf_tpu_torch.ops import fused_mlp_cm as FM
+    from fgs_nerf_tpu_torch.ops.cuda import fused_mlp_cm as B89
+
+    _check(not any(B89.KERNEL.launches.values()),
+           f"B8/B9 launched before phase 13: {B89.KERNEL.launches}")
+    cfg, _, params0, _, s_val, loss_and_grads, _ = _setup(
+        torch, M, "fine", "sorted", dev, n_rand)
+    seen = []
+    real = M._mlp_apply_cm
+
+    def rec(mlp_params, blocks, bf16):
+        seen.append(([b.detach().clone().contiguous() for b in blocks],
+                     {k: v.detach().clone() for k, v in mlp_params.items()}))
+        return real(mlp_params, blocks, bf16)
+
+    with _patched([(M, "_mlp_apply_cm", rec)]):
+        loss_and_grads(params0, {}, *batch, s_val, 1.0)
+    torch.cuda.synchronize()
+    del params0
+    nets = {}
+    for blocks, mp in seen:
+        n = len(mp) // 2
+        name = "rgbnet" if mp[f"w{n - 1}"].shape[1] > 8 else "refnet"
+        nets[name] = (blocks, [mp[f"w{i}"] for i in range(n)],
+                      [mp[f"b{i}"] for i in range(n)])
+    _check(sorted(nets) == ["refnet", "rgbnet"], sorted(nets))
+    del seen
+    torch.cuda.empty_cache()
+
+    # the op's path through the kernels: zero, run forward + backward, read
+    for fn in B89.KERNEL.launches:
+        B89.KERNEL.launches[fn] = 0
+    gen = torch.Generator(device=dev).manual_seed(13)
+    gs = {}
+    for name, (blocks, ws, bs) in nets.items():
+        g = torch.randn((ws[-1].shape[1], blocks[0].shape[1]), generator=gen,
+                        device=dev)
+        gs[name] = g
+        leaves = [b.clone().requires_grad_(True) for b in blocks]
+        wl = [w.clone().requires_grad_(True) for w in ws]
+        out = FM.fused_mlp_cm(leaves, wl, [b.clone() for b in bs])
+        _check(out.shape == (ws[-1].shape[1], blocks[0].shape[1]), out.shape)
+        (out * g).sum().backward()
+        _check(all(bool(torch.isfinite(x.grad).all()) for x in leaves + wl),
+               f"{name}: non-finite gradient through the op")
+        del out, leaves, wl
+    torch.cuda.synchronize()
+    launches = dict(B89.KERNEL.launches)
+    _check(launches == {"fused_mlp_fwd": 2, "fused_mlp_bwd": 2}, launches)
+    torch.cuda.empty_cache()
+
+    calls = {"fused_mlp_fwd": [], "fused_mlp_bwd": []}
+    for name, (blocks, ws, bs) in nets.items():
+        g = gs[name]
+        m = blocks[0].shape[1]
+        macs = sum(w.shape[0] * w.shape[1] for w in ws) * m
+        in_bytes = _nbytes(*blocks, *ws, *bs)
+        widths = [ws[0].shape[0]] + [w.shape[1] for w in ws]
+        got = FM.fused_mlp_cm_fwd(blocks, ws, bs)
+        want = FM.fused_mlp_cm_fwd_plain(blocks, ws, bs)
+        diff = (got - want).abs()
+        err = float(diff.max())
+        share = {t: float((diff > t).float().mean()) for t in (1e-5, 1e-4, 1e-3)}
+        _check(err < 1e-2 and share[1e-5] < MLP_FLIP_SHARE,
+               f"B8 {name}: max {err}, shares past 1e-5/1e-4/1e-3 {share}")
+        _check(torch.equal(got, FM.fused_mlp_cm_fwd(blocks, ws, bs)),
+               f"B8 {name} is not deterministic")
+        bound = _bound(in_bytes + _nbytes(got), 2 * macs, PEAK_BF16_FLOPS)
+        # control: hiddens left in f32 must fail the share limit
+        ctrl = FM.fused_mlp_cm_fwd_plain(blocks, ws, bs, round_hidden=False)
+        ctrl_share = float(((ctrl - want).abs() > 1e-5).float().mean())
+        _check(ctrl_share > MLP_FLIP_SHARE,
+               f"B8 {name}: the unrounded control passes ({ctrl_share})")
+        del want, diff, got, ctrl
+        x_cl = torch.cat(blocks, dim=0).T.contiguous()
+        mp = {**{f"w{i}": w for i, w in enumerate(ws)},
+              **{f"b{i}": b for i, b in enumerate(bs)}}
+        r = dict(path=f"fine {name}", m=m, widths=widths, max_abs_err=err,
+                 share_past={str(k): v for k, v in share.items()},
+                 control_share_past_1e5={"no_hidden_rounding": ctrl_share},
+                 ms=_time_ms(lambda: FM.fused_mlp_cm_fwd(blocks, ws, bs), 3,
+                             torch),
+                 plain_ms=_time_ms(
+                     lambda: FM.fused_mlp_cm_fwd_plain(blocks, ws, bs), 2,
+                     torch),
+                 bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+                 matmul_chain_ms=_time_ms(
+                     lambda: MLP.mlp_apply(mp, x_cl, bf16=True), 3, torch))
+        del x_cl
+        calls["fused_mlp_fwd"].append(r)
+        print(json.dumps({"kernel": "fused_mlp_fwd", **r, "card": card}))
+        torch.cuda.empty_cache()
+
+        dx, dws, dbs = FM.fused_mlp_cm_bwd(blocks, ws, bs, g)
+        plain = _b9_outputs(FM.fused_mlp_cm_bwd_plain(blocks, ws, bs, g))
+        kernel = [dx] + dws + dbs
+        _check([a.shape for a in kernel] == [b.shape for b in plain],
+               f"B9 {name}: output shapes")
+        err = max(float((a - b).abs().max()) for a, b in zip(kernel, plain))
+        rel_max, dx_share = _b9_readings(kernel, plain)
+        # controls: the twin without one of its bf16 roundings, which the
+        # same check must reject
+        control = {}
+        for key, kw in (("no_dz_rounding", dict(round_dz=False)),
+                        ("no_hidden_rounding", dict(round_hidden=False))):
+            control[key] = _b9_readings(_b9_outputs(
+                FM.fused_mlp_cm_bwd_plain(blocks, ws, bs, g, **kw)), plain)
+        del plain, kernel
+        report = dict(rel_l2=rel_max, dx_share=dx_share, control=control)
+        _check(rel_max < MLP_REL_L2 and dx_share < MLP_DX_SHARE,
+               f"B9 {name} fails its check: {report}")
+        for key, (c_rel, c_share) in control.items():
+            _check(c_rel > MLP_REL_L2 or c_share > MLP_DX_SHARE,
+                   f"B9 {name}: the control {key} passes: {report}")
+        again = FM.fused_mlp_cm_bwd(blocks, ws, bs, g)
+        _check(all(torch.equal(a, b) for a, b in
+                   zip([dx] + dws + dbs, [again[0]] + again[1] + again[2])),
+               f"B9 {name} is not deterministic")
+        out_bytes = _nbytes(dx, *dws, *dbs)
+        del again, dx, dws, dbs
+        torch.cuda.empty_cache()
+        bound = _bound(in_bytes + _nbytes(g) + out_bytes,
+                       _mlp_bwd_flops(ws, m), PEAK_BF16_FLOPS)
+        r = dict(path=f"fine {name}", m=m, widths=widths, max_abs_err=err,
+                 max_rel_l2=rel_max, dx_share_past_1e4_rms=dx_share,
+                 limits={"rel_l2": MLP_REL_L2, "dx_share": MLP_DX_SHARE},
+                 controls={k: {"max_rel_l2": v[0], "dx_share_past_1e4_rms": v[1]}
+                           for k, v in control.items()},
+                 ms=_time_ms(lambda: FM.fused_mlp_cm_bwd(blocks, ws, bs, g), 2,
+                             torch),
+                 plain_ms=_time_ms(
+                     lambda: FM.fused_mlp_cm_bwd_plain(blocks, ws, bs, g), 1,
+                     torch),
+                 bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+        calls["fused_mlp_bwd"].append(r)
+        print(json.dumps({"kernel": "fused_mlp_bwd", **r, "card": card}))
+        torch.cuda.empty_cache()
+    del nets, gs
+    torch.cuda.empty_cache()
+    return calls, launches
+
+
+_PIPELINE_CONFIG = """\
+from fgs_nerf_tpu_torch.config.base import deep_update
+from fgs_nerf_tpu_torch.config.scenes import FULL_SYNTHETIC
+
+# full_synthetic (the shiny_blender widths, 40 views of 256 x 256, 3 test
+# views, N_rand 8,192) with the depth of every schedule cut; each stage
+# still climbs all its pg_scale rungs to its full grid
+config = deep_update(FULL_SYNTHETIC, dict(
+    geometry_searching=dict(N_iters=16, pg_scale=[2, 4, 6, 8, 10, 12, 14],
+                            reset_iter=[2, 4, 6, 8, 10, 12, 14],
+                            decay_step_module={}),
+    coarse_train=dict(N_iters=14, pg_scale=[2, 4, 6, 8, 10, 12],
+                      tv_updates={}, decay_step_module={}),
+    fine_train=dict(N_iters=6, pg_scale=[3], decay_step_module={}),
+))
+"""
+
+# kernel call site (a function of ops/sorted_cm.py or of
+# ops/cuda/fused_shade_cm.py) -> the launcher name its kernel counts under
+_LAUNCHER_OF = {"window_gather_cm": "window_gather_cm",
+                "dense_accumulate_cm": "dense_accumulate_cm",
+                "fused_shade_cm_fwd": "fused_shade_fwd",
+                "fused_shade_cm_bwd": "fused_shade_bwd",
+                "tap_window_serve_cm": "tap_window_serve_cm",
+                "tap_dense_accumulate_cm": "tap_dense_accumulate_cm"}
+
+# the kernel call sites each stage's path reaches (sorted engine)
+_STAGE_SITES = {
+    "geometry_searching": ("window_gather_cm", "dense_accumulate_cm",
+                           "fused_shade_cm_fwd", "fused_shade_cm_bwd"),
+    "coarse": ("window_gather_cm", "dense_accumulate_cm", "fused_shade_cm_fwd",
+               "fused_shade_cm_bwd"),
+    "fine": ("window_gather_cm", "dense_accumulate_cm", "tap_window_serve_cm",
+             "tap_dense_accumulate_cm"),
+}
+
+
+def _pipeline_phase(torch, np, card, repo, kernels, config_text):
+    """Phase 14: the three-stage pipeline through the CLI, in process.
+    Returns (the per-stage report, the checked kernel calls by site)."""
+    import shutil
+
+    from fgs_nerf_tpu_torch import run as R
+    from fgs_nerf_tpu_torch.config.base import load_config
+    from fgs_nerf_tpu_torch.eval import evaluator as E
+    from fgs_nerf_tpu_torch.ops import sorted_cm as ST
+    from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
+    from fgs_nerf_tpu_torch.train import checkpoint as CK
+    from fgs_nerf_tpu_torch.train import trainer as TR
+
+    run_dir = repo / "results" / "chip_smoke"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    cfg_path = run_dir / "pipeline_config.py"
+    cfg_path.write_text(config_text)
+    cfg = load_config(str(cfg_path))
+
+    def counts():
+        return {fn: n for k in kernels for fn, n in k.launches.items() if n}
+
+    stages, step_log, ckpt_s, evals = {}, [], [], {}
+    real_stage, real_step = TR.train_stage, TR.make_train_step
+    real_save = CK.save_checkpoint
+    real_rv, real_mesh = E.render_viewpoints, E.extract_mesh_from_params
+    # the kernel calls of the first step of each built step function; a
+    # stage keeps those of its last build (its last rung), which that
+    # step's timing already leaves out.  The copies go to the host, out
+    # of the stage's peak device memory, and their seconds come off the
+    # stage's wall time.
+    rec = {"on": False, "calls": [], "s": 0.0}
+    checked = {}
+
+    def recorder(name, fn):
+        def run(*args):
+            if rec["on"]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dev = next(a.device for a in args
+                           if isinstance(a, torch.Tensor))
+                rec["calls"].append((name, dev, _clone(args, torch, "cpu")))
+                rec["s"] += time.perf_counter() - t0
+            return fn(*args)
+        return run
+
+    sites = [(mod, name, recorder(name, getattr(mod, name)))
+             for mod, names in ((ST, ("window_gather_cm", "dense_accumulate_cm",
+                                      "tap_window_serve_cm",
+                                      "tap_dense_accumulate_cm")),
+                                (FS, ("fused_shade_cm_fwd",
+                                      "fused_shade_cm_bwd")))
+             for name in names]
+
+    def check_stage(stage):
+        calls, rec["calls"] = rec["calls"], []
+        _check(sorted({c[0] for c in calls}) == sorted(_STAGE_SITES[stage]),
+               f"{stage}: recorded calls {[c[0] for c in calls]}")
+        seen = {}
+        while calls:
+            name, dev, args = calls.pop(0)
+            seen[name] = seen.get(name, 0) + 1
+            args = _clone(args, torch, dev)
+            r = _check_call(torch, name, args,
+                            f"pipeline {stage} #{seen[name]}")
+            del args
+            torch.cuda.empty_cache()
+            checked.setdefault(name, []).append(r)
+            print(json.dumps({"kernel": name, **r, "card": card}))
+
+    def timed_stage(cfg_, stage, *args, **kw):
+        for k in kernels:
+            for fn in k.launches:
+                k.launches[fn] = 0
+        step_log.clear()
+        ckpt_s.clear()
+        rec["s"] = 0.0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = real_stage(cfg_, stage, *args, **kw)
+        torch.cuda.synchronize()
+        stages[stage] = dict(
+            result=res, wall_s=time.perf_counter() - t0 - rec["s"],
+            record_s=rec["s"], launches=counts(),
+            steps=list(step_log), ckpt_s=list(ckpt_s),
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        check_stage(stage)
+        return res
+
+    def timed_make_step(cfg_m, *args, **kw):
+        step = real_step(cfg_m, *args, **kw)
+        n_run = [0]
+
+        def run(*a):
+            rec["on"] = n_run[0] == 0
+            if rec["on"]:
+                rec["calls"].clear()
+            n_run[0] += 1
+            t0 = time.perf_counter()
+            out = step(*a)
+            torch.cuda.synchronize()
+            step_log.append((tuple(cfg_m.world_size),
+                             time.perf_counter() - t0, rec["on"]))
+            rec["on"] = False
+            return out
+        return run
+
+    def timed_save(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_save(*a, **kw)
+        ckpt_s.append(time.perf_counter() - t0)
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            evals[key] = (time.perf_counter() - t0, out)
+            return out
+        return run
+
+    argv = ["--mode", "train", "--config", str(cfg_path), "--expname", "run",
+            "--output_dir", str(run_dir), "--device", "cuda", "--i_print", "2"]
+    t0 = time.perf_counter()
+    with _patched([(TR, "train_stage", timed_stage),
+                   (TR, "make_train_step", timed_make_step),
+                   (CK, "save_checkpoint", timed_save),
+                   (E, "render_viewpoints", timed("render", real_rv)),
+                   (E, "extract_mesh_from_params", timed("mesh", real_mesh)),
+                   *sites]):
+        R.main(argv)
+    wall = time.perf_counter() - t0
+    out_dir = run_dir / "run"
+
+    report = {}
+    for stage, blk, trn in (
+            ("geometry_searching", "geometry_searching_model",
+             "geometry_searching"),
+            ("coarse", "coarse_model", "coarse_train"),
+            ("fine", "fine_model", "fine_train")):
+        st = stages[stage]
+        res = st["result"]
+        last_ws = st["steps"][-1][0]
+        # a build's first step also allocates (and was recorded): left out
+        last = ([dt for ws, dt, first in st["steps"]
+                 if ws == last_ws and not first]
+                or [dt for ws, dt, _ in st["steps"] if ws == last_ws])
+        ms = 1e3 * float(np.mean(last))
+        ck = CK.load_checkpoint(str(out_dir / f"{stage}_last.npz"))
+        ws_ck = tuple(ck.meta["model_kwargs"]["world_size"])
+        nv = int(cfg[blk]["num_voxels"])
+        line = {
+            "stage": stage, "wall_s": st["wall_s"],
+            "record_s_left_out": st["record_s"], "steps": len(st["steps"]),
+            "ms_per_step_last_rung": ms,
+            "rays_per_s_last_rung": int(cfg[trn]["N_rand"]) / (ms / 1e3),
+            "steps_timed_at_last_rung": len(last),
+            "world_size": list(res.cfg_model.world_size),
+            "kept_ratio": res.kept_ratio, "peak_mem_gb": st["peak_mem_gb"],
+            "launches": st["launches"], "ckpt_write_s": st["ckpt_s"],
+            "loss": res.last_metrics.get("loss"),
+            "psnr_last": res.psnr_history[-1], "card": card}
+        report[stage] = line
+        print(json.dumps({"pipeline_stage": line}))
+        _check(bool(np.isfinite(res.psnr_history).all())
+               and bool(np.isfinite(res.last_metrics["loss"])),
+               f"{stage}: non-finite loss or PSNR")
+        _check(ws_ck == tuple(ck.params["sdf"].shape[:3]) == last_ws,
+               f"{stage}: checkpoint grid {ck.params['sdf'].shape} vs {ws_ck}")
+        _check(abs(ck.meta["model_kwargs"]["num_voxels"] / nv - 1) < 0.01
+               and abs(np.prod(ws_ck) / nv - 1) < 0.1,
+               f"{stage}: grid {ws_ck} does not hold {nv} voxels")
+        for site in _STAGE_SITES[stage]:
+            fn = _LAUNCHER_OF[site]
+            _check(st["launches"].get(fn, 0) > 0,
+                   f"{stage}: {fn} was not launched ({st['launches']})")
+        _check(not any(fn.startswith("fused_mlp") for fn in st["launches"]),
+               f"{stage}: B8/B9 launched on a training path")
+
+    t_render, stats = evals["render"]
+    t_mesh, (verts, tris) = evals["mesh"]
+    n_views = len(stats["rgbs"])
+    print(json.dumps({"pipeline_eval": {
+        "wall_s_total": wall, "views": n_views,
+        "s_per_view": t_render / n_views, "psnr": stats["psnr"],
+        "ssim": stats["ssim"], "mesh_resolution": 512, "mesh_s": t_mesh,
+        "vertices": len(verts), "triangles": len(tris), "card": card}}))
+    _check(bool(np.isfinite(stats["psnr"]).all()), "eval PSNR not finite")
+    for rgb in stats["rgbs"]:
+        _check(bool(np.all(np.isfinite(rgb))) and rgb.min() >= 0.0
+               and rgb.max() <= 1.0, "eval pixels not finite or outside [0, 1]")
+    _check(len(verts) > 0 and len(tris) > 0, "empty mesh")
+    _check((out_dir / "meshes" / "eval.ply").is_file(), "no mesh file")
+    _check(len(list((out_dir / "render_test_eval").glob("*render_*.png")))
+           == n_views, "test renders were not written")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    return report, checked
+
+
 def main():
     import torch
 
@@ -781,6 +1315,7 @@ def main():
     from fgs_nerf_tpu_torch.ops import scatter as SC
     from fgs_nerf_tpu_torch.ops import sorted_cm as ST
     from fgs_nerf_tpu_torch.ops.cuda import build
+    from fgs_nerf_tpu_torch.ops.cuda import fused_mlp_cm as B89
     from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
     from fgs_nerf_tpu_torch.ops.cuda import scatter_combine as B7
     from fgs_nerf_tpu_torch.ops.cuda import scatter_combine_cm as B2
@@ -792,7 +1327,8 @@ def main():
     t0 = time.perf_counter()
 
     # ---- 1. build ------------------------------------------------------
-    kernels = (B1.KERNEL, B2.KERNEL, FS.KERNEL, B56.KERNEL, B7.KERNEL)
+    kernels = (B1.KERNEL, B2.KERNEL, FS.KERNEL, B56.KERNEL, B7.KERNEL,
+               B89.KERNEL)
     build.build_all(kernels)
     print(f"build: {time.perf_counter() - t0:.1f} s")
     for k in kernels:
@@ -852,14 +1388,14 @@ def main():
     err = float((got - want).abs().max())
     _check(err == 0.0, f"B1 differs from its plain twin: {err}")
     c = pack.shape[0] // 4
-    nb = _nbytes(pack, rows, w8, got)
+    bound = _bound(_nbytes(pack, rows, w8, got), 16 * c * rows.numel(),
+                   PEAK_F32_FLOPS)
     results["window_gather_cm"] = dict(
-        max_abs_err=err,
+        path="coarse", max_abs_err=err,
         ms=_time_ms(lambda: B1.window_gather_cm(pack, rows, w8), 10, torch),
         plain_ms=_time_ms(lambda: B1.window_gather_cm_plain(pack, rows, w8), 5,
                           torch),
-        bound=_bound(nb, 16 * c * rows.numel(), PEAK_F32_FLOPS),
-        library_ms=None)
+        bound_ms=bound[0], bound_by=bound[1], library_ms=None)
     del got, want
 
     # B2: dense accumulate
@@ -875,15 +1411,16 @@ def main():
     idx2 = torch.cat([rows_c, rows_c + 1]).long()
     upd2 = torch.cat([upd0, upd1], dim=1)
     c2 = g2.shape[0]
-    nb = _nbytes(rows_c, w8_2, g2, got)
+    bound = _bound(_nbytes(rows_c, w8_2, g2, got), 16 * c2 * rows_c.numel(),
+                   PEAK_F32_FLOPS)
     results["dense_accumulate_cm"] = dict(
-        max_abs_err=err,
+        path="coarse", max_abs_err=err,
         ms=_time_ms(lambda: B2.dense_accumulate_cm(rows_c, w8_2, g2, n_rows),
                     10, torch),
         plain_ms=_time_ms(
             lambda: B2.dense_accumulate_cm_plain(rows_c, w8_2, g2, n_rows), 5,
             torch),
-        bound=_bound(nb, 16 * c2 * rows_c.numel(), PEAK_F32_FLOPS),
+        bound_ms=bound[0], bound_by=bound[1],
         # index_add_ alone, on updates formed before the timed region
         library_ms=_time_ms(
             lambda: torch.zeros((4 * c2, n_rows), device=dev).index_add_(
@@ -891,64 +1428,14 @@ def main():
     del got, want, again, upd0, upd1, upd2, idx2
 
     # B3 / B4: fused shading head
-    k0, xyz, refl, normal, vd, ws, bs, *pe = captured["b3"]
-    ins = (k0, xyz, refl, normal, vd)
-    cin = ws[0].shape[0]
-    hid = ws[0].shape[1]
-    d_out = ws[-1].shape[1]
-    macs = cin * hid + sum(w.shape[0] * w.shape[1] for w in ws[1:])
-    ms = k0.shape[-1]
-    got = FS.fused_shade_cm_fwd(*ins, ws, bs, *pe)
-    want = FS.fused_shade_cm_fwd_plain(*ins, ws, bs, *pe)
-    diff = (got - want).abs()
-    err = float(diff.max())
-    frac = float((diff > 1e-5).float().mean())
-    _check(err < 1e-2 and frac < 0.01, f"B3: max {err}, past 1e-5 {frac}")
-    in_bytes = _nbytes(*ins) + _nbytes(*ws) + _nbytes(*bs)
-    results["fused_shade_cm_fwd"] = dict(
-        max_abs_err=err,
-        ms=_time_ms(lambda: FS.fused_shade_cm_fwd(*ins, ws, bs, *pe), 5,
-                    torch),
-        plain_ms=_time_ms(
-            lambda: FS.fused_shade_cm_fwd_plain(*ins, ws, bs, *pe), 3, torch),
-        bound=_bound(in_bytes + _nbytes(got), 2 * macs * ms, PEAK_BF16_FLOPS),
-        library_ms=None)
-    del got, want, diff
-
-    k0, xyz, refl, normal, vd, ws, bs, g, *pe = captured["b4"]
-    ins = (k0, xyz, refl, normal, vd)
-    d_k, dw_k, db_k = FS.fused_shade_cm_bwd(*ins, ws, bs, g, *pe)
-    d_p, dw_p, db_p = FS.fused_shade_cm_bwd_plain(*ins, ws, bs, g, *pe)
-    err = 0.0
-    for a, b in zip(list(d_k) + dw_k + db_k, list(d_p) + dw_p + db_p):
-        if b is None:
-            continue
-        rel = _rel_l2(a, b)
-        _check(rel < 1e-3, f"B4 cotangent off by rel L2 {rel}")
-        err = max(err, float((a - b).abs().max()))
-    again = FS.fused_shade_cm_bwd(*ins, ws, bs, g, *pe)
-    _check(all(torch.equal(a, b) for a, b in zip(dw_k, again[1])),
-           "B4 dW is not deterministic")
-    out_bytes = _nbytes(*[d for d in d_k if d is not None], *dw_k, *db_k)
-    results["fused_shade_cm_bwd"] = dict(
-        max_abs_err=err,
-        ms=_time_ms(lambda: FS.fused_shade_cm_bwd(*ins, ws, bs, g, *pe), 3,
-                    torch),
-        plain_ms=_time_ms(
-            lambda: FS.fused_shade_cm_bwd_plain(*ins, ws, bs, g, *pe), 2,
-            torch),
-        # recompute + dW + dX: three times the forward's products
-        bound=_bound(in_bytes + _nbytes(g) + out_bytes, 6 * macs * ms,
-                     PEAK_BF16_FLOPS),
-        library_ms=None)
-    del d_k, dw_k, db_k, d_p, dw_p, db_p, again, captured
+    results["fused_shade_cm_fwd"] = _check_shade_fwd(torch, captured["b3"],
+                                                     "coarse")
+    results["fused_shade_cm_bwd"] = _check_shade_bwd(torch, captured["b4"],
+                                                     "coarse")
+    del captured
     torch.cuda.empty_cache()
     for name, r in results.items():
-        print(json.dumps({"kernel": name, "max_abs_err": r["max_abs_err"],
-                          "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
-                          "bound_ms": r["bound"][0],
-                          "bound_by": r["bound"][1],
-                          "library_ms": r["library_ms"], "card": card}))
+        print(json.dumps({"kernel": name, **r, "card": card}))
 
     # ---- 3. main path ----------------------------------------------------
     launchers = {
@@ -1011,18 +1498,13 @@ def main():
         torch, np, card, dev, batch, n_rand)
     _eval_phase(torch, np, card, fine_state)
     del fine_state
+    torch.cuda.empty_cache()
 
-    coarse_calls = {name: [dict(path="coarse", max_abs_err=r["max_abs_err"],
-                                ms=r["ms"], plain_ms=r["plain_ms"],
-                                bound_ms=r["bound"][0], bound_by=r["bound"][1],
-                                library_ms=r["library_ms"])]
-                    for name, r in results.items()}
-    launcher_of = {"window_gather_cm": "window_gather_cm",
-                   "dense_accumulate_cm": "dense_accumulate_cm",
-                   "fused_shade_cm_fwd": "fused_shade_fwd",
-                   "fused_shade_cm_bwd": "fused_shade_bwd",
-                   "tap_window_serve_cm": "tap_window_serve_cm",
-                   "tap_dense_accumulate_cm": "tap_dense_accumulate_cm"}
+    # ---- 13. B8/B9, 14. the pipeline through the CLI ---------------------
+    mlp_calls, mlp_launches = _mlp_phase(torch, np, card, dev, batch, n_rand)
+    pipeline, pipeline_calls = _pipeline_phase(torch, np, card, repo,
+                                               kernels, _PIPELINE_CONFIG)
+
     rows_out = []
     for name, kern, replaces, main_call in (
         ("window_gather_cm", B1.KERNEL,
@@ -1038,12 +1520,13 @@ def main():
         ("tap_dense_accumulate_cm", B56.KERNEL,
          "fgs_nerf_tpu/ops/pallas/tap_serve_cm.py:358", "fine z/y taps"),
     ):
-        calls = coarse_calls.get(name, []) + fine_calls.get(name, [])
+        calls = ([results[name]] if name in results else []) + (
+            fine_calls.get(name, []) + pipeline_calls.get(name, []))
         main = next(c for c in calls if c["path"] == main_call)
         by_path = {"coarse": coarse_launches.get(name, 0),
                    "fine": fine_launches.get(name, 0),
                    "fine_masked": masked_launches.get(name, 0),
-                   **{p.replace(" ", "_"): c.get(launcher_of[name], 0)
+                   **{p.replace(" ", "_"): c.get(_LAUNCHER_OF[name], 0)
                       for p, c in lattice_launches.items()}}
         rows_out.append({
             "name": name, "route": "cuda", "source": kern.source_rel,
@@ -1077,6 +1560,27 @@ def main():
             "lattice_fine": by_path["lattice_fine"] / (N_WARMUP + N_FINE_STEPS)},
         "calls": b7_calls,
     })
+    for name, replaces in (
+            ("fused_mlp_fwd", "fgs_nerf_tpu/ops/pallas/fused_mlp_cm.py:231"),
+            ("fused_mlp_bwd", "fgs_nerf_tpu/ops/pallas/fused_mlp_cm.py:258")):
+        calls = mlp_calls[name]
+        main = next(c for c in calls if c["path"] == "fine rgbnet")
+        rows_out.append({
+            "name": name, "route": "cuda", "source": B89.KERNEL.source_rel,
+            "replaces": replaces, "launches": mlp_launches[name],
+            "max_abs_err": max(c["max_abs_err"] for c in calls),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None,
+            "matmul_chain_ms": main.get("matmul_chain_ms"),
+            "timed_call": main["path"],
+            "launches_path": "the fused_mlp_cm op, forward and backward of "
+                             "the rgbnet and the refnet",
+            "launches_per_step": {p: 0 for p in (
+                "coarse", "fine", "lattice_coarse", "lattice_fine",
+                *(f"pipeline_{st}" for st in pipeline))},
+            "calls": calls,
+        })
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows_out}))

@@ -7,8 +7,9 @@ and bound with ``ctypes`` (``ops/cuda/``).  A kernel wrapper launches its
 kernel for CUDA tensors and runs its plain PyTorch twin for CPU tensors;
 nothing else selects between the two.
 
-Ported so far: the coarse and fine train steps on both render engines
-(``train/trainer.py:make_train_step``) and the full-image evaluation
-render (``eval/render.py``).  Importing the package
+Ported so far: the three-stage training pipeline on both render engines
+(``train/pipeline.py``, ``train/trainer.py``), checkpoints in the JAX
+package's format, evaluation and meshing (``eval/``), and the command
+line (``python -m fgs_nerf_tpu_torch.run``).  Importing the package
 imports neither ``jax`` nor any module of ``fgs_nerf_tpu``.
 """

@@ -17,6 +17,9 @@
 // gradients sum the fp32 dz; input cotangents go back through the
 // sincos chain rule (_enc_bwd, fused_mlp_cm.py:449-459).
 //
+// Hidden width 192 (the coarse refnet) or 128 (the geometry-searching
+// refnet), one template instance each.
+//
 // Design.  A block of 256 threads walks tiles of 64 samples
 // (persistent: one block per SM, launched with grid = #SMs).  The
 // padded bf16 weights stay in shared memory for the block's life
@@ -483,7 +486,24 @@ __global__ void reduce_partials_kernel(const float* __restrict__ part,
 // C launchers
 // ---------------------------------------------------------------------------
 
-#define HID_SUPPORTED 192
+// The one list of compiled hidden widths: the coarse refnet (192) and the
+// geometry-searching refnet (128) of every built-in config.  A width
+// outside it has no kernel and check_dims rejects it.
+struct ShadeKernels {
+  int hid;
+  void (*fwd)(ShadeIn, float*, int);
+  void (*bwd)(ShadeIn, ShadeGrad, int);
+};
+static const ShadeKernels kShadeKernels[] = {
+    {128, fused_shade_fwd_kernel<128>, fused_shade_bwd_kernel<128>},
+    {192, fused_shade_fwd_kernel<192>, fused_shade_bwd_kernel<192>},
+};
+
+static const ShadeKernels* kernels_for(int hid) {
+  for (const ShadeKernels& k : kShadeKernels)
+    if (k.hid == hid) return &k;
+  return nullptr;
+}
 
 static size_t fwd_smem_bytes(int cin8, int hid) {
   return sizeof(bf16) * ((size_t)cin8 * (hid + 2) + (size_t)hid * (hid + 2) +
@@ -501,7 +521,7 @@ static size_t bwd_smem_bytes(int cin8, int hid) {
 static int check_dims(int cin8, int hid, int d_out, int k0_dim, int pos_pe,
                       int ref_pe, int view_pe, int use_vd) {
   const Layout L = make_layout(k0_dim, pos_pe, ref_pe, view_pe, use_vd);
-  if (hid != HID_SUPPORTED || L.cin8 != cin8 || cin8 > 128 || d_out < 1 ||
+  if (!kernels_for(hid) || L.cin8 != cin8 || cin8 > 128 || d_out < 1 ||
       d_out > OUT8)
     return (int)cudaErrorInvalidValue;
   return 0;
@@ -546,15 +566,13 @@ extern "C" int fused_shade_fwd(
   if (rc) return rc;
   if (M == 0) return (int)cudaGetLastError();
   const size_t smem = fwd_smem_bytes(cin8, hid);
+  void (*kern)(ShadeIn, float*, int) = kernels_for(hid)->fwd;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_shade_fwd_kernel<HID_SUPPORTED>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   ShadeIn a = make_in(k0, xyz, refl, normal, vd, w0, w1, w2, b0, b1, b2, M,
                       k0_dim, pos_pe, ref_pe, view_pe, use_vd, cin8);
-  fused_shade_fwd_kernel<HID_SUPPORTED><<<nblk, NT, smem,
-                                          (cudaStream_t)stream>>>(
-      a, (float*)out, d_out);
+  kern<<<nblk, NT, smem, (cudaStream_t)stream>>>(a, (float*)out, d_out);
   return (int)cudaGetLastError();
 }
 
@@ -576,9 +594,9 @@ extern "C" int fused_shade_bwd(
   cudaStream_t st = (cudaStream_t)stream;
   if (M > 0) {
     const size_t smem = bwd_smem_bytes(cin8, hid);
+    void (*kern)(ShadeIn, ShadeGrad, int) = kernels_for(hid)->bwd;
     cudaError_t err = cudaFuncSetAttribute(
-        fused_shade_bwd_kernel<HID_SUPPORTED>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     ShadeIn a = make_in(k0, xyz, refl, normal, vd, w0, w1, w2, b0, b1, b2,
                         M, k0_dim, pos_pe, ref_pe, view_pe, use_vd, cin8);
@@ -591,8 +609,7 @@ extern "C" int fused_shade_bwd(
     r.d_vd = (float*)d_vd;
     r.part = (float*)part;
     r.n_part = n_part;
-    fused_shade_bwd_kernel<HID_SUPPORTED><<<nblk, NT, smem, st>>>(a, r,
-                                                                 d_out);
+    kern<<<nblk, NT, smem, st>>>(a, r, d_out);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

@@ -1,14 +1,22 @@
-"""Pixel -> ray generation on the host (numpy).
+"""Pixel -> ray generation on the host (numpy) and the training-ray
+samplers.
 
-Copies of ``get_rays``, ``ndc_rays`` and ``get_rays_of_a_view`` from
-``fgs_nerf_tpu/data/rays.py:21-89`` (that module imports JAX for its
-mask-cache filter, so the port keeps its own copy): pixel-center
-offsets, the inverse_y / flip_x / flip_y conventions, unit view
-directions, and the NDC warp.
+Port of ``fgs_nerf_tpu/data/rays.py:21-198``: pixel-center offsets, the
+inverse_y / flip_x / flip_y conventions, unit view directions, the NDC
+warp, the per-view and flattened training rays, the 'in_maskcache'
+pixel filter (its fixed-N samples run on the mask cache's device) and
+the epoch-style batch index generator, which draws from numpy's
+``default_rng(seed)`` exactly as the JAX package does.
 """
 from __future__ import annotations
 
+from typing import Iterator
+
 import numpy as np
+import torch
+
+from fgs_nerf_tpu_torch.core.box import SceneBox
+from fgs_nerf_tpu_torch.ops.ray_sample import ray_box_intersect
 
 
 def get_rays(h: int, w: int, k: np.ndarray, c2w: np.ndarray,
@@ -79,3 +87,101 @@ def get_rays_of_a_view(h, w, k, c2w, ndc, inverse_y, flip_x, flip_y,
         rays_d.astype(np.float32),
         viewdirs.astype(np.float32),
     )
+
+
+def get_training_rays(images, poses, hw, ks, ndc, inverse_y, flip_x, flip_y):
+    """Per-view ray grids [V, H, W, 3] for the 'random' / 'patch'
+    samplers (`data/rays.py:92-103`)."""
+    h, w = int(hw[0][0]), int(hw[0][1])
+    v = len(poses)
+    rays_o = np.empty((v, h, w, 3), np.float32)
+    rays_d = np.empty((v, h, w, 3), np.float32)
+    viewdirs = np.empty((v, h, w, 3), np.float32)
+    for idx, c2w in enumerate(poses):
+        o, d, vd = get_rays_of_a_view(h, w, ks[idx], c2w, ndc, inverse_y,
+                                      flip_x, flip_y)
+        rays_o[idx], rays_d[idx], viewdirs[idx] = o, d, vd
+    return images, rays_o, rays_d, viewdirs
+
+
+def get_training_rays_flatten(images, poses, hw, ks, ndc, inverse_y, flip_x,
+                              flip_y):
+    """All pixels flattened to [N, 3] (`data/rays.py:106-118`)."""
+    rgb_l, o_l, d_l, v_l = [], [], [], []
+    for img, c2w, (h, w), k in zip(images, poses, hw, ks):
+        o, d, vd = get_rays_of_a_view(int(h), int(w), k, c2w, ndc, inverse_y,
+                                      flip_x, flip_y)
+        rgb_l.append(np.asarray(img).reshape(-1, 3))
+        o_l.append(o.reshape(-1, 3))
+        d_l.append(d.reshape(-1, 3))
+        v_l.append(vd.reshape(-1, 3))
+    return (np.concatenate(rgb_l), np.concatenate(o_l),
+            np.concatenate(d_l), np.concatenate(v_l))
+
+
+def make_maskcache_pixel_filter(box: SceneBox, world_size, stepsize: float,
+                                voxel_size: float, mask_cache_query_fn):
+    """Per-chunk pixel filter of the 'in_maskcache' sampler
+    (`data/rays.py:121-148`): a pixel survives if any of its fixed-N
+    samples lies in the bbox and in the mask cache.  ``keep_fn(rays_o,
+    rays_d, near, far)`` takes numpy [n, 3] rays, runs on the device of
+    ``box`` and returns a numpy bool [n]."""
+    dev = box.xyz_min.device
+    n_samples = int(np.linalg.norm(np.asarray(world_size) + 1) / stepsize) + 1
+    step = (stepsize * voxel_size
+            * torch.arange(n_samples, dtype=torch.float32, device=dev))
+
+    @torch.no_grad()
+    def keep_fn(rays_o, rays_d, near, far):
+        rays_o = torch.as_tensor(rays_o, device=dev)
+        rays_d = torch.as_tensor(rays_d, device=dev)
+        t_min, t_max = ray_box_intersect(rays_o, rays_d, box, near, far)
+        mask_ray = t_max > t_min
+        interpx = t_min[:, None] + step[None, :] / torch.linalg.norm(
+            rays_d, dim=-1, keepdim=True)
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * interpx[..., None]
+        inb = torch.all((pts >= box.xyz_min) & (pts <= box.xyz_max), dim=-1)
+        inb = inb & mask_ray[:, None]
+        occ = mask_cache_query_fn(pts)
+        return torch.any(inb & occ, dim=-1).cpu().numpy()
+
+    return keep_fn
+
+
+def get_training_rays_in_maskcache(images, poses, hw, ks, ndc, inverse_y,
+                                   flip_x, flip_y, keep_fn, near, far,
+                                   chunk=65536):
+    """Filtered flat training rays and the kept ratio
+    (`data/rays.py:151-186`).  The JAX package pads each view's last chunk
+    to one static shape for its jitted filter; every pixel's test is its
+    own, so the port filters the real pixels only."""
+    rgb_l, o_l, d_l, v_l = [], [], [], []
+    total, kept = 0, 0
+    for img, c2w, (h, w), k in zip(images, poses, hw, ks):
+        o, d, vd = get_rays_of_a_view(int(h), int(w), k, c2w, ndc, inverse_y,
+                                      flip_x, flip_y)
+        o_f, d_f, vd_f = o.reshape(-1, 3), d.reshape(-1, 3), vd.reshape(-1, 3)
+        img_f = np.asarray(img).reshape(-1, 3)
+        keep = np.concatenate([
+            keep_fn(o_f[s:s + chunk], d_f[s:s + chunk], float(near), float(far))
+            for s in range(0, len(o_f), chunk)])
+        total += len(keep)
+        kept += int(keep.sum())
+        rgb_l.append(img_f[keep])
+        o_l.append(o_f[keep])
+        d_l.append(d_f[keep])
+        v_l.append(vd_f[keep])
+    ratio = kept / max(total, 1)
+    return (np.concatenate(rgb_l), np.concatenate(o_l),
+            np.concatenate(d_l), np.concatenate(v_l), ratio)
+
+
+def batch_index_generator(n: int, bs: int, seed: int = 777) -> Iterator[np.ndarray]:
+    """Epoch-style random permutation batches (`data/rays.py:189-197`)."""
+    rng = np.random.default_rng(seed)
+    idx, top = rng.permutation(n), 0
+    while True:
+        if top + bs > n:
+            idx, top = rng.permutation(n), 0
+        yield idx[top:top + bs]
+        top += bs

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
@@ -37,3 +38,16 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "PyTorch paths on the CPU"
         )
     return dev
+
+
+def to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
+    """Host data (numpy array or Python number) -> a tensor on ``device``.
+
+    To the card the copy goes through pinned memory without blocking, so
+    a step loop that feeds per-step host values (batch indices, learning
+    rates, schedule scalars) does not wait for the work already queued;
+    a plain ``torch.tensor(x, device='cuda')`` would synchronise."""
+    t = torch.as_tensor(np.asarray(a), dtype=dtype)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

@@ -11,7 +11,6 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
-import scipy.signal
 
 
 def mse2psnr(mse: float) -> float:
@@ -49,6 +48,8 @@ def rgb_ssim(
     f_i = ((np.arange(filter_size) - hw + shift) / filter_sigma) ** 2
     filt = np.exp(-0.5 * f_i)
     filt /= np.sum(filt)
+
+    import scipy.signal  # slow to import; only SSIM needs it
 
     def convolve2d(z, f):
         return scipy.signal.convolve2d(z, f, mode="valid")

@@ -5,8 +5,8 @@ into fixed 8,192-ray chunks (the last one padded by repeating its last
 ray) and rendered by the lattice engine, whatever engine the stage
 trained with (the sorted engine is a training path); each image gets
 PSNR with foreground / background splits and SSIM, and, with a
-``savedir``, the image, error, normal, depth and background dumps.
-``imageio`` is imported only to write those files.  LPIPS is not ported
+``savedir``, the image, error, normal, depth and background dumps as
+PNG files (``eval/image_io.py``).  LPIPS is not ported
 (``eval_lpips=True`` raises).
 """
 from __future__ import annotations
@@ -22,6 +22,7 @@ import torch
 from fgs_nerf_tpu_torch.core.box import SceneBox
 from fgs_nerf_tpu_torch.data.rays import get_rays_of_a_view
 from fgs_nerf_tpu_torch.eval import metrics as metrics_lib
+from fgs_nerf_tpu_torch.eval.image_io import write_png
 from fgs_nerf_tpu_torch.models import sdf_voxel as M
 
 _OUT_KEYS = ("rgb_marched", "depth", "disp", "alphainv_cum", "normal_marched",
@@ -93,29 +94,26 @@ def matte(vis, bgmap, dark=1.0, light=1.0, width=8):
 
 def _save_view(savedir, pre, i, res, rgb, gt):
     """The image dumps of one view (`eval/render.py:145-182`)."""
-    import imageio.v2 as imageio
-
-    imageio.imwrite(os.path.join(savedir, f"{pre}render_{i:03d}.png"),
-                    metrics_lib.to8b(rgb))
+    write_png(os.path.join(savedir, f"{pre}render_{i:03d}.png"),
+              metrics_lib.to8b(rgb))
     if gt is not None:
         gt8 = metrics_lib.to8b(gt)
         err = 1 - np.exp(-20 * np.square(rgb - gt).sum(-1))
         err8 = metrics_lib.to8b(np.repeat(err[..., None], 3, -1))
-        imageio.imwrite(os.path.join(savedir, f"{pre}gt_{i:03d}.png"), gt8)
-        imageio.imwrite(
-            os.path.join(savedir, f"{pre}{i:03d}.png"),
-            np.concatenate([err8, metrics_lib.to8b(rgb), gt8], axis=0))
+        write_png(os.path.join(savedir, f"{pre}gt_{i:03d}.png"), gt8)
+        write_png(os.path.join(savedir, f"{pre}{i:03d}.png"),
+                  np.concatenate([err8, metrics_lib.to8b(rgb), gt8], axis=0))
     bgmap = res["alphainv_cum"]
     normal_vis = matte(res["normal_marched"] / 2.0 + 0.5, bgmap[..., None])
-    imageio.imwrite(os.path.join(savedir, f"{pre}_normal_{i:03d}.png"),
-                    metrics_lib.to8b(normal_vis))
+    write_png(os.path.join(savedir, f"{pre}_normal_{i:03d}.png"),
+              metrics_lib.to8b(normal_vis))
     depth = res["depth"]
     dmax = float(depth.max()) or 1.0
     depth_vis = matte((depth / dmax)[..., None], bgmap[..., None])
-    imageio.imwrite(os.path.join(savedir, f"{pre}_depth_{i:03d}.png"),
-                    metrics_lib.to8b(np.repeat(depth_vis, 3, axis=-1)))
-    imageio.imwrite(os.path.join(savedir, f"{pre}_bgmap_{i:03d}.png"),
-                    metrics_lib.to8b(np.asarray(bgmap)[..., None].repeat(3, -1)))
+    write_png(os.path.join(savedir, f"{pre}_depth_{i:03d}.png"),
+              metrics_lib.to8b(np.repeat(depth_vis, 3, axis=-1)))
+    write_png(os.path.join(savedir, f"{pre}_bgmap_{i:03d}.png"),
+              metrics_lib.to8b(np.asarray(bgmap)[..., None].repeat(3, -1)))
 
 
 def render_viewpoints(render_chunk, params, buffers, poses, hw, ks, conv: Dict,

@@ -7,9 +7,11 @@ parameter construction (``:241-297``), the mask machinery
 ``_pts_at_steps``, ``_topk_select``, ``_gather_slots``, ``forward`` and
 ``forward_coarse`` / ``forward_fine`` with their shading heads,
 ``:529-972``), the channel-major shading heads (``:980-1067``,
-``:1412-1442``), ``forward_fine_sorted`` (``:1070-1409``) and
-``forward_coarse_sorted`` (``:1445-1633``).  The grid handoff
-(``:309-527``) is not ported yet.
+``:1412-1442``), ``forward_fine_sorted`` (``:1070-1409``),
+``forward_coarse_sorted`` (``:1445-1633``) and the stage handoff
+(``:279-527``: refnet reset, the checkpoint's sdf_mask, bbox shrink,
+nonempty mask, near-camera mask-out, view counts, rung upscaling and the
+coarse -> fine warm start).
 
 Parameters are a flat dict with the JAX package's names and layouts:
   sdf    [X, Y, Z, 1]
@@ -25,7 +27,6 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from fgs_nerf_tpu_torch.core.box import SceneBox, grid_resolution, max_samples_per_ray
@@ -38,8 +39,8 @@ from fgs_nerf_tpu_torch.ops.encoding import (
     freq_bank, l2_normalize, reflect, sincos_encode,
 )
 from fgs_nerf_tpu_torch.ops.interp import (
-    _trilinear_sample_index_impl, center_gradient_taps, sample_sdf_taps,
-    trilinear_sample,
+    _trilinear_sample_index_impl, center_gradient_taps, max_pool3d_same,
+    resize_trilinear, sample_sdf_taps, trilinear_sample,
 )
 from fgs_nerf_tpu_torch.ops.ray_sample import (
     ray_box_intersect, ray_norm, sample_along_rays,
@@ -240,10 +241,9 @@ def build_mask_cache(sdf_mask: torch.Tensor, prior_xyz_min,
                      prior_xyz_max) -> Dict[str, torch.Tensor]:
     """MaskCache state: 3x3x3 max-pooled prior-stage sdf_mask
     (`sdf_voxel.py:337-346`).  sdf_mask: [X, Y, Z, 1]."""
-    pooled = F.max_pool3d(sdf_mask.permute(3, 0, 1, 2), 3, stride=1, padding=1)
     dev = sdf_mask.device
     return {
-        "grid": pooled.permute(1, 2, 3, 0).contiguous(),
+        "grid": max_pool3d_same(sdf_mask, 3),
         "xyz_min": torch.as_tensor(np.asarray(prior_xyz_min, np.float32), device=dev),
         "xyz_max": torch.as_tensor(np.asarray(prior_xyz_max, np.float32), device=dev),
     }
@@ -269,6 +269,153 @@ def inc_mask_query(lower, upper, xyz, box: SceneBox, world_size) -> torch.Tensor
     u = ijk / (sizes - 1.0)
     inside = torch.all((u >= lower) & (u <= upper), dim=-1)
     return inside & inb
+
+
+def reset_refnet(params: Dict[str, Any], generator: torch.Generator,
+                 cfg: SDFModelConfig) -> Dict[str, Any]:
+    """Re-init the shading head after a progressive-scaling rung
+    (`sdf_voxel.py:279-286`).  ``generator`` lives on the params' device."""
+    new = dict(params)
+    new["refnet"] = init_mlp(
+        generator,
+        refnet_dims(cfg.refnet_in_dim(), cfg.refnet_width, cfg.refnet_depth),
+        params["sdf"].device,
+    )
+    return new
+
+
+def empty_buffers() -> Dict[str, Any]:
+    return {}
+
+
+def build_sdf_mask(params: Dict[str, Any], cfg: SDFModelConfig) -> torch.Tensor:
+    """The checkpoint-time occupancy summary handed to the next stage
+    (`sdf_voxel.py:309-320`), with the reference's quirk: a boolean
+    ``sdf < 0.5`` (not ``|sdf| < 0.5``) scaled to 1e-3, on the smoothed
+    SDF when smoothing is on."""
+    sdf = params["sdf"]
+    if cfg.smooth_sdf:
+        sdf = smooth_grid(sdf, cfg.smooth_ksize, cfg.smooth_sigma)
+    return torch.where(sdf < 0.5, 1e-3, 0.0).to(torch.float32)
+
+
+def compute_bbox_from_sdf_mask(sdf_mask: np.ndarray, xyz_min: np.ndarray,
+                               xyz_max: np.ndarray):
+    """Shrink the stage bbox to the active mask extent, on the host
+    (`sdf_voxel.py:323-334`)."""
+    m = np.asarray(sdf_mask)[..., 0] > 0
+    axes = [np.linspace(0.0, 1.0, n) for n in m.shape]
+    gx, gy, gz = np.meshgrid(*axes, indexing="ij")
+    interp = np.stack([gx, gy, gz], -1)
+    dense_xyz = xyz_min * (1 - interp) + xyz_max * interp
+    active = dense_xyz[m]
+    return active.min(0).astype(np.float32), active.max(0).astype(np.float32)
+
+
+def _grid_nodes(world_size, box: SceneBox) -> torch.Tensor:
+    """World positions of the grid nodes [X, Y, Z, 3]
+    (`sdf_voxel.py:393-396`)."""
+    axes = [torch.linspace(float(box.xyz_min[i]), float(box.xyz_max[i]),
+                           world_size[i], dtype=torch.float32,
+                           device=box.xyz_min.device) for i in range(3)]
+    gx, gy, gz = torch.meshgrid(*axes, indexing="ij")
+    return torch.stack([gx, gy, gz], -1)
+
+
+def set_nonempty_mask(params: Dict[str, Any], buffers: Dict[str, Any],
+                      cfg: SDFModelConfig, box: SceneBox):
+    """Mark grid nodes inside known-occupied space; in the coarse stage
+    also push free-space SDF to +1 (`sdf_voxel.py:378-390`)."""
+    nodes = _grid_nodes(cfg.world_size, box)
+    mask = mask_cache_query(buffers["mask_cache"], nodes, cfg.mask_cache_thres)
+    buffers = dict(buffers)
+    buffers["nonempty_mask"] = mask[..., None]
+    params = dict(params)
+    if cfg.stage == "coarse":
+        params["sdf"] = torch.where(mask[..., None], params["sdf"], 1.0)
+    return params, buffers
+
+
+def maskout_near_cam_vox(params: Dict[str, Any], cam_o: torch.Tensor,
+                         near: float, cfg: SDFModelConfig,
+                         box: SceneBox) -> Dict[str, Any]:
+    """SDF := 5 for voxels within ``near`` of any camera
+    (`sdf_voxel.py:399-412`); one camera at a time, so no
+    [X, Y, Z, V, 3] temporary."""
+    nodes = _grid_nodes(cfg.world_size, box)
+    d2 = None
+    for c in cam_o:
+        diff = nodes - c
+        dc = diff[..., 0] ** 2 + diff[..., 1] ** 2 + diff[..., 2] ** 2
+        d2 = dc if d2 is None else torch.minimum(d2, dc)
+    near_mask = torch.sqrt(d2) <= near
+    params = dict(params)
+    params["sdf"] = torch.where(near_mask[..., None], 5.0, params["sdf"])
+    return params
+
+
+def voxel_count_views(cfg: SDFModelConfig, box: SceneBox,
+                      rays_o_views: np.ndarray, rays_d_views: np.ndarray,
+                      near: float, far: float, stepsize: float,
+                      downrate: int = 1) -> torch.Tensor:
+    """Per-voxel count of views whose rays deposit more than 1 of
+    accumulated trilinear weight (`sdf_voxel.py:434-480`).  The weight is
+    the gradient of ``sum(trilinear(ones, pts))`` w.r.t. the grid, i.e.
+    the trilinear backward (kernel B7 on the card)."""
+    dev = box.xyz_min.device
+    n_samples = int(np.linalg.norm(np.asarray(cfg.world_size) + 1)
+                    / stepsize) + 1
+    step = (stepsize * cfg.voxel_size
+            * torch.arange(n_samples, dtype=torch.float32, device=dev))
+    count = torch.zeros((*cfg.world_size, 1), dtype=torch.float32, device=dev)
+    for v in range(len(rays_o_views)):
+        rays_o = torch.as_tensor(
+            np.ascontiguousarray(rays_o_views[v][::downrate, ::downrate])
+            .reshape(-1, 3), device=dev)
+        rays_d = torch.as_tensor(
+            np.ascontiguousarray(rays_d_views[v][::downrate, ::downrate])
+            .reshape(-1, 3), device=dev)
+        vec = torch.where(rays_d == 0, torch.full_like(rays_d, 1e-6), rays_d)
+        rate_a = (box.xyz_max - rays_o) / vec
+        rate_b = (box.xyz_min - rays_o) / vec
+        t_min = torch.clamp(torch.amax(torch.minimum(rate_a, rate_b), -1),
+                            near, far)
+        interpx = t_min[:, None] + step[None, :] / torch.linalg.norm(
+            rays_d, dim=-1, keepdim=True)
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * interpx[..., None]
+        ones = torch.ones((*cfg.world_size, 1), dtype=torch.float32,
+                          device=dev, requires_grad=True)
+        (w,) = torch.autograd.grad(trilinear_sample(ones, pts, box).sum(),
+                                   ones)
+        count = count + (w > 1.0).to(torch.float32)
+    return count
+
+
+def scale_volume_grid(params: Dict[str, Any],
+                      new_cfg: SDFModelConfig) -> Dict[str, Any]:
+    """Trilinear upsample of sdf + k0 to the new rung's resolution
+    (`sdf_voxel.py:488-501`), dense k0 only."""
+    if new_cfg.grid_type != "dense":
+        raise NotImplementedError(f"grid_type {new_cfg.grid_type!r} is not ported")
+    params = dict(params)
+    params["sdf"] = resize_trilinear(params["sdf"], new_cfg.world_size)
+    params["k0"] = resize_trilinear(params["k0"], new_cfg.world_size)
+    return params
+
+
+def init_sdf_from_sdf(params: Dict[str, Any], sdf0: torch.Tensor,
+                      cfg: SDFModelConfig, reduce: float = 1.0) -> Dict[str, Any]:
+    """Warm-start the SDF from the previous stage's grid
+    (`sdf_voxel.py:504-521`): resize, divide by ``reduce``, then (with
+    ``smooth_scale``) a 5^3 sigma-1 gaussian."""
+    params = dict(params)
+    if tuple(sdf0.shape[:3]) != tuple(cfg.world_size):
+        sdf0 = resize_trilinear(sdf0, cfg.world_size)
+    sdf = sdf0 / reduce
+    if cfg.smooth_scale:
+        sdf = smooth_grid(sdf, 5, 1.0)
+    params["sdf"] = sdf
+    return params
 
 
 # ---------------------------------------------------------------------------

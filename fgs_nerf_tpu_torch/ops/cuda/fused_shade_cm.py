@@ -31,7 +31,9 @@ KERNEL = CudaKernel(
     },
 )
 
-KERNEL_HIDDEN = 192  # the hidden width the CUDA kernels are built for
+# hidden widths with a CUDA instance: kShadeKernels in the source, which
+# also rejects any other width
+KERNEL_HIDDENS = (128, 192)
 OUT8 = 8
 
 
@@ -202,12 +204,12 @@ def _kernel_operands(k0, xyz, refl, normal, vd, weights, biases, pos_pe,
     _, cin8 = pad_plan(rows)
     hid = weights[0].shape[1]
     d_out = weights[-1].shape[1]
-    if (len(weights) != 3 or hid != KERNEL_HIDDEN
+    if (len(weights) != 3 or hid not in KERNEL_HIDDENS
             or weights[1].shape != (hid, hid) or cin8 > 128
             or d_out > OUT8):
         raise ValueError(
             f"fused_shade_cm kernel: supports a 3-layer refnet of width "
-            f"{KERNEL_HIDDEN} with <= 128 padded inputs and <= 8 outputs; "
+            f"{KERNEL_HIDDENS} with <= 128 padded inputs and <= 8 outputs; "
             f"got widths {[tuple(w.shape) for w in weights]}, cin8 {cin8}")
     ins = [k0, xyz, refl, normal] + ([vd] if vd is not None else [])
     m = k0.shape[-1]

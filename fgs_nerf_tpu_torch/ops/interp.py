@@ -10,7 +10,7 @@ out-of-range corners reading zero.  The backward of every trilinear
 gather is ``ops/scatter.py:corner_scatter_grid_grad`` (kernel B7 on the
 card); the cotangent of the positions is None, because sample positions
 are data (`ops/interp.py:96-102`).  ``resize_trilinear`` and
-``max_pool3d_same`` belong to the stage handoff and are not ported yet.
+``max_pool3d_same`` (``:347-391``) serve the stage handoff.
 """
 from __future__ import annotations
 
@@ -229,3 +229,41 @@ def center_gradient_taps(grid: torch.Tensor, xyz: torch.Tensor, box: SceneBox,
                          dim=-1)
     grad_xyz = torch.stack([grad[..., 2], grad[..., 1], grad[..., 0]], dim=-1)
     return grad_xyz, feat_xyz
+
+
+def _resize_axis_linear(grid: torch.Tensor, axis: int, new_len: int) -> torch.Tensor:
+    """Align-corners linear resize of one axis (`ops/interp.py:347-363`)."""
+    old_len = grid.shape[axis]
+    if old_len == new_len:
+        return grid
+    if old_len == 1:
+        reps = [1] * grid.ndim
+        reps[axis] = new_len
+        return grid.repeat(*reps)
+    pos = torch.linspace(0.0, old_len - 1.0, new_len, dtype=torch.float32,
+                         device=grid.device)
+    i0 = torch.clamp(torch.floor(pos).long(), 0, old_len - 2)
+    f = pos - i0.to(pos.dtype)
+    lo = torch.index_select(grid, axis, i0)
+    hi = torch.index_select(grid, axis, i0 + 1)
+    shape = [1] * grid.ndim
+    shape[axis] = new_len
+    f = f.reshape(shape)
+    return lo * (1.0 - f) + hi * f
+
+
+def resize_trilinear(grid: torch.Tensor, new_size: Sequence[int]) -> torch.Tensor:
+    """Align-corners trilinear resize of an [X, Y, Z, C] grid, one
+    separable linear pass per axis (`ops/interp.py:366-376`)."""
+    out = grid
+    for axis, n in enumerate(new_size):
+        out = _resize_axis_linear(out, axis, int(n))
+    return out
+
+
+def max_pool3d_same(grid: torch.Tensor, ksize: int = 3) -> torch.Tensor:
+    """k x k x k max pool, stride 1, same padding (padding reads -inf)
+    over an [X, Y, Z, C] grid (`ops/interp.py:379-391`)."""
+    pooled = F.max_pool3d(grid.permute(3, 0, 1, 2), ksize, stride=1,
+                          padding=ksize // 2)
+    return pooled.permute(1, 2, 3, 0).contiguous()

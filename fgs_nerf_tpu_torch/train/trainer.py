@@ -1,30 +1,73 @@
-"""The train step of every stage (geometry, coarse, fine) on either
-engine: ``models.sdf_voxel.forward`` chooses the sorted or the lattice
-engine from the config.
+"""Per-stage training: the train step of every stage (geometry, coarse,
+fine) on either engine, and the stage driver around it.
 
-Port of ``make_train_step`` (``fgs_nerf_tpu/train/trainer.py:117-212``)
-without the dp ``shard_map`` and the spatial ``gather_fn``: one step is
-forward + losses + backward (+ the fine-stage TV injection when asked)
-+ masked Adam, with the same arguments and metrics as the JAX step.
-Parameter groups are walked generically, so the fine stage's ``rgbnet``
-needs no special case.
-PyTorch runs eagerly, so the step is a plain function (no jit); it
-returns new parameter and optimizer-state dicts and leaves its inputs
-untouched.
+Port of ``fgs_nerf_tpu/train/trainer.py``.  ``make_train_step``
+(``:117-212``) runs without the dp ``shard_map`` and the spatial
+``gather_fn``: one step is forward + losses + backward (+ the fine-stage
+TV injection when asked) + masked Adam, with the same arguments and
+metrics as the JAX step; ``models.sdf_voxel.forward`` chooses the sorted
+or the lattice engine from the config.  PyTorch runs eagerly, so the
+step is a plain function; it returns new parameter and optimizer-state
+dicts and leaves its inputs untouched.
+
+``train_stage`` (``:215-667``) runs one stage on one device: the
+progressive-scaling rungs with refnet resets, the prior stage's mask
+cache and nonempty mask, the coarse -> fine SDF warm start, the ray
+samplers, per-voxel learning rates, resume, the incremental voxel box,
+``s_updates`` / ``smooth_updates`` and capacity escalation (each a new
+frozen ``SDFModelConfig``, hence a new step: the counterpart of a JAX
+retrace), validation renders and checkpoints.  Parameters, optimizer
+state, training rays and step metrics stay on the device; metrics reach
+the host once per ``i_print`` window.
 """
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+import logging
+import os
+import time
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
+from fgs_nerf_tpu_torch.config.base import stage_blocks
 from fgs_nerf_tpu_torch.core.box import SceneBox
+from fgs_nerf_tpu_torch.data import rays as ray_lib
+from fgs_nerf_tpu_torch.device import DeviceLike, resolve_device, to_device
 from fgs_nerf_tpu_torch.models import sdf_voxel as M
 from fgs_nerf_tpu_torch.optim.masked_adam import (
-    ParamOpts, adam_update, tree_leaves, tree_map,
+    AdamState, ParamOpts, adam_update, init_state, tree_leaves, tree_map,
 )
+from fgs_nerf_tpu_torch.ops.sdf2alpha import s_val_schedule
 from fgs_nerf_tpu_torch.ops.tv import tv_grad
+from fgs_nerf_tpu_torch.train import checkpoint as ckpt_lib
+from fgs_nerf_tpu_torch.train import schedules
 from fgs_nerf_tpu_torch.train.losses import LossWeights, compute_losses
+from fgs_nerf_tpu_torch.train.stage_common import (
+    apply_pervoxel_lr, apply_world_bound_scale, config_passthrough,
+    drop_pervoxel_lr, fetch_metrics, pg_deduction,
+)
+
+
+def loss_weights_from_cfg(cfg_train) -> LossWeights:
+    """`train/trainer.py:43-53`."""
+    return LossWeights(
+        weight_main=cfg_train.get("weight_main", 1.0),
+        weight_rgbper=cfg_train.get("weight_rgbper", 0.0),
+        weight_entropy_last=cfg_train.get("weight_entropy_last", 0.0),
+        weight_orientation=cfg_train.get("weight_orientation", 0.0),
+        sigmoid_rgb_loss=cfg_train.get("sigmoid_rgb_loss", 0.0),
+        weight_tv_density=cfg_train.get("weight_tv_density", 0.0),
+        weight_tv_k0=cfg_train.get("weight_tv_k0", 0.0),
+        ori_tv=cfg_train.get("ori_tv", False),
+    )
+
+
+def make_param_opts(params: Dict[str, Any], cfg_train) -> Dict[str, ParamOpts]:
+    """`train/trainer.py:56-60`."""
+    skip = set(cfg_train.get("skip_zero_grad_fields", []))
+    return {name: ParamOpts(skip_zero_grad=name in skip) for name in params}
 
 
 def make_loss_and_grads(cfg_model: M.SDFModelConfig, box: SceneBox,
@@ -93,9 +136,9 @@ def make_train_step(cfg_model: M.SDFModelConfig, box: SceneBox,
                                               opts,
                                               per_lr=buffers.get("per_lr"))
             if not cfg_model.s_learn:
-                new_params["s_val"] = torch.full(
-                    (1,), float(s_val), dtype=torch.float32,
-                    device=params["s_val"].device)
+                new_params["s_val"] = torch.as_tensor(
+                    s_val, dtype=torch.float32,
+                    device=params["s_val"].device).reshape(1).clone()
 
             w_full = render["weights"]
             wm = torch.amax(w_full, dim=-1)
@@ -123,3 +166,358 @@ def make_train_step(cfg_model: M.SDFModelConfig, box: SceneBox,
         return new_params, new_opt, metrics
 
     return step_fn
+
+
+def _next_capacity(k: int, s_max: int) -> int:
+    """The next capacity rung: 1.5x rounded up to a multiple of 8, capped
+    at the lattice depth (`train/trainer.py:215-222`)."""
+    if k <= 0 or k >= s_max:
+        return k
+    return min(s_max, ((k + k // 2 + 7) // 8) * 8)
+
+
+@dataclasses.dataclass
+class StageResult:
+    params: Dict[str, Any]
+    cfg_model: M.SDFModelConfig
+    box: SceneBox
+    ckpt_path: str
+    psnr_history: list
+    # mean step metrics over the final i_print window
+    last_metrics: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # share of pixels the 'in_maskcache' filter kept (None: other sampler)
+    kept_ratio: Optional[float] = None
+
+
+def _cam_origins(data_dict, dev) -> torch.Tensor:
+    return torch.as_tensor(
+        np.asarray(data_dict["poses"])[data_dict["i_train"], :3, 3],
+        dtype=torch.float32, device=dev)
+
+
+def train_stage(cfg, stage: str, data_dict: Dict[str, Any],
+                xyz_min: np.ndarray, xyz_max: np.ndarray, out_dir: str, *,
+                coarse_ckpt_path: Optional[str] = None,
+                mask_ckpt_path: Optional[str] = None, logger=None,
+                seed: int = 777, i_print: int = 500,
+                n_iters_override: Optional[int] = None, resume: bool = False,
+                i_validate: int = 0, device: DeviceLike = None) -> StageResult:
+    """Run one training stage end to end (`train/trainer.py:238-667`) on
+    ``device`` (None: the CUDA card)."""
+    log = logger or logging.getLogger("fgs")
+    dev = resolve_device(device)
+    cfg_model_blk, cfg_train = stage_blocks(cfg, stage)
+
+    xyz_min, xyz_max, box = apply_world_bound_scale(
+        cfg_model_blk, xyz_min, xyz_max, dev)
+    scale_ratio, pg_scale, cur_voxels = pg_deduction(cfg_train, cfg_model_blk)
+    reset_iter = set(cfg_train.get("reset_iter", []))
+    passthrough = config_passthrough(cfg_model_blk, M.SDFModelConfig)
+
+    def build_cfg(nv: int) -> M.SDFModelConfig:
+        return M.make_model_config(stage=stage, xyz_min=xyz_min,
+                                   xyz_max=xyz_max, num_voxels=nv,
+                                   **passthrough)
+
+    cfg_m = build_cfg(cur_voxels)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = M.init_params(gen, cfg_m, dev)
+
+    # buffers: the mask cache from the geometry-searching checkpoint
+    buffers: Dict[str, Any] = {}
+    if (stage != "geometry_searching" and mask_ckpt_path
+            and os.path.exists(mask_ckpt_path)):
+        mc_ckpt = ckpt_lib.load_checkpoint(mask_ckpt_path)
+        prior_min, prior_max = mc_ckpt.box
+        buffers["mask_cache"] = M.build_mask_cache(
+            torch.as_tensor(mc_ckpt.sdf_mask, device=dev), prior_min,
+            prior_max)
+        params, buffers = M.set_nonempty_mask(params, buffers, cfg_m, box)
+
+    # fine stage: warm-start the SDF from the coarse grid
+    if stage == "fine" and coarse_ckpt_path and os.path.exists(coarse_ckpt_path):
+        c_ckpt = ckpt_lib.load_checkpoint(coarse_ckpt_path)
+        params = M.init_sdf_from_sdf(
+            params, torch.as_tensor(c_ckpt.params["sdf"], device=dev), cfg_m,
+            reduce=cfg_train.get("sdf_reduce", 1.0))
+
+    if cfg_model_blk.get("maskout_near_cam_vox", False):
+        params = M.maskout_near_cam_vox(params, _cam_origins(data_dict, dev),
+                                        data_dict["near"], cfg_m, box)
+
+    opt_state = init_state(params)
+    opts = make_param_opts(params, cfg_train)
+    loss_w = loss_weights_from_cfg(cfg_train)
+    lr_state = schedules.LrState(schedules.initial_lrs(cfg_train, set(params)))
+
+    near = float(data_dict["near"])
+    far = float(data_dict["far"])
+    bg = 1.0 if cfg.data.white_bkgd else 0.0
+    n_rand = int(cfg_train["N_rand"])
+    tv_terms = dict(cfg_train.get("tv_terms", {}))
+
+    # ---- training rays (uploaded once; batches are gathered on device) --
+    rng = np.random.default_rng(seed)
+    images = np.asarray(data_dict["images"])[data_dict["i_train"]]
+    poses = np.asarray(data_dict["poses"])[data_dict["i_train"]]
+    hw = np.asarray(data_dict["HW"])[data_dict["i_train"]]
+    ks = np.asarray(data_dict["Ks"])[data_dict["i_train"]]
+    conv = dict(ndc=cfg.data.ndc, inverse_y=cfg.data.inverse_y,
+                flip_x=cfg.data.flip_x, flip_y=cfg.data.flip_y)
+    sampler = cfg_train.get("ray_sampler", "random")
+    kept_ratio = None
+    if sampler == "in_maskcache" and "mask_cache" in buffers:
+        mc = buffers["mask_cache"]
+        keep_fn = ray_lib.make_maskcache_pixel_filter(
+            box, cfg_m.world_size, cfg_m.stepsize, cfg_m.voxel_size,
+            lambda pts: M.mask_cache_query(mc, pts, cfg_m.mask_cache_thres))
+        rgb_tr, o_tr, d_tr, v_tr, kept_ratio = \
+            ray_lib.get_training_rays_in_maskcache(
+                images, poses, hw, ks, keep_fn=keep_fn, near=near, far=far,
+                **conv)
+        log.info(f"in_maskcache ray filter kept ratio {kept_ratio:.3f}")
+        if len(rgb_tr) < n_rand:
+            raise ValueError(
+                f"maskcache ray filter kept only {len(rgb_tr)} rays "
+                f"(< N_rand={n_rand}) — the prior stage's sdf_mask and "
+                "the current bbox are inconsistent")
+        flat = True
+    elif sampler in ("flatten", "in_maskcache"):
+        rgb_tr, o_tr, d_tr, v_tr = ray_lib.get_training_rays_flatten(
+            images, poses, hw, ks, **conv)
+        flat = True
+    else:  # 'random' / 'patch'
+        rgb_tr, o_tr, d_tr, v_tr = ray_lib.get_training_rays(
+            images, poses, hw, ks, **conv)
+        flat = False
+    if flat:
+        index_gen = ray_lib.batch_index_generator(len(rgb_tr), n_rand, seed)
+    elif sampler == "patch":
+        view_gen = ray_lib.batch_index_generator(len(rgb_tr), 1, seed)
+
+    # per-voxel LR from visibility counts (`train/trainer.py:385-397`)
+    if cfg_train.get("pervoxel_lr", False):
+        if flat:
+            raise ValueError("pervoxel_lr requires a per-view ray sampler")
+        cnt = M.voxel_count_views(
+            cfg_m, box, o_tr, d_tr, near, far, cfg_m.stepsize,
+            downrate=int(cfg_train.get("pervoxel_lr_downrate", 1)))
+        params, opts, buffers = apply_pervoxel_lr(
+            params, opts, buffers, cnt, clamp_param="sdf", clamp_value=1.0)
+
+    ray_dev = [torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+               for a in (o_tr, d_tr, v_tr, rgb_tr)]
+    n_views_tr = rgb_tr.shape[0]
+    del o_tr, d_tr, v_tr
+
+    # ---- step function cache ----------------------------------------------
+    step_cache: Dict[Any, Any] = {}
+
+    def build_step(global_step):
+        sdf_tv = float(tv_terms.get("sdf_tv", 0.0))
+        smooth_grad_tv = float(tv_terms.get("smooth_grad_tv", 0.0))
+        tv_dense = global_step < cfg_train.get("tv_dense_before", 0)
+        inject_tv = not cfg_train.get("ori_tv", False)
+        use_nonempty = "nonempty_mask" in buffers
+        key_ = (cfg_m, sdf_tv, smooth_grad_tv, tv_dense, inject_tv,
+                use_nonempty, tuple(sorted(opts.items())))
+        if key_ not in step_cache:
+            step_cache[key_] = make_train_step(
+                cfg_m, box, loss_w, opts, near=near, bg=bg, n_rand=n_rand,
+                sdf_tv=sdf_tv, smooth_grad_tv=smooth_grad_tv,
+                inject_tv=inject_tv, tv_dense=tv_dense,
+                weight_tv_density=loss_w.weight_tv_density,
+                weight_tv_k0=loss_w.weight_tv_k0,
+                use_nonempty_mask=use_nonempty)
+        return step_cache[key_]
+
+    n_iters = n_iters_override or int(cfg_train["N_iters"])
+    psnr_hist = []
+    pending = []
+    t0 = time.time()
+    last_metrics: Dict[str, float] = {}
+
+    ckpt_path = os.path.join(out_dir, f"{stage}_last.npz")
+    os.makedirs(out_dir, exist_ok=True)
+
+    # mid-stage resume: params, moments, LR state and the pg rung
+    start = 0
+    if resume and os.path.exists(ckpt_path):
+        rck = ckpt_lib.load_checkpoint(ckpt_path)
+        start = min(rck.global_step, n_iters)
+        for _ in [p for p in pg_scale if p <= start]:
+            cur_voxels = int(cur_voxels * scale_ratio)
+        pg_scale = [p for p in pg_scale if p > start]
+        cfg_m = build_cfg(cur_voxels)
+
+        def to_dev(a):
+            return torch.as_tensor(np.asarray(a), device=dev)
+
+        params = tree_map(to_dev, rck.params)
+        opt_state = init_state(params)
+        if rck.opt is not None:
+            opt_state = AdamState(to_dev(rck.opt["step"]),
+                                  tree_map(to_dev, rck.opt["exp_avg"]),
+                                  tree_map(to_dev, rck.opt["exp_avg_sq"]))
+        if rck.meta.get("lrs"):
+            lr_state = schedules.LrState(dict(rck.meta["lrs"]))
+        log.info(f"[{stage}] resumed from {ckpt_path} at step {start}")
+
+    s_val = None
+    for global_step in range(1 + start, n_iters + 1):
+        # progressive scaling (`train/trainer.py:460-495`)
+        if global_step in pg_scale:
+            cur_voxels = int(cur_voxels * scale_ratio)
+            new_cfg = build_cfg(cur_voxels)
+            params = M.scale_volume_grid(params, new_cfg)
+            cfg_m = new_cfg
+            if global_step in reset_iter:
+                params = M.reset_refnet(params, gen, cfg_m)
+                if cfg_model_blk.get("maskout_near_cam_vox", False):
+                    params = M.maskout_near_cam_vox(
+                        params, _cam_origins(data_dict, dev), near, cfg_m, box)
+            if "mask_cache" in buffers:
+                params, buffers = M.set_nonempty_mask(params, buffers, cfg_m,
+                                                      box)
+            opt_state = init_state(params)
+            lr_state = schedules.LrState(
+                schedules.initial_lrs(cfg_train, set(params)))
+            # reference quirk: per-voxel LR is not recomputed after a rescale
+            opts, buffers = drop_pervoxel_lr(opts, buffers)
+            log.info(f"[{stage}] pg_scale at {global_step}: voxels -> "
+                     f"{cur_voxels} world_size -> {cfg_m.world_size}")
+
+        # incremental voxel box
+        bounds = schedules.inc_bounds(global_step, cfg_train)
+        if bounds is not None:
+            buffers["inc_lower"] = to_device(bounds[0], dev, torch.float32)
+            buffers["inc_upper"] = to_device(bounds[1], dev, torch.float32)
+        else:
+            buffers.pop("inc_lower", None)
+            buffers.pop("inc_upper", None)
+
+        # batch selection: the JAX package's numpy draws, gathered on device
+        if flat:
+            sel = to_device(next(index_gen), dev)
+            batch = [a[sel] for a in ray_dev]
+        elif sampler == "patch":
+            b = int(next(view_gen)[0])
+            patch = int(round(np.sqrt(n_rand)))
+            r0 = int(rng.integers(0, rgb_tr.shape[1] - patch))
+            c0 = int(rng.integers(0, rgb_tr.shape[2] - patch))
+            batch = [a[b, r0:r0 + patch, c0:c0 + patch].reshape(-1, 3)
+                     for a in ray_dev]
+        else:
+            b = rng.integers(0, n_views_tr, n_rand)
+            r = rng.integers(0, rgb_tr.shape[1], n_rand)
+            c = rng.integers(0, rgb_tr.shape[2], n_rand)
+            bi, ri, ci = to_device(np.stack([b, r, c]), dev)
+            batch = [a[bi, ri, ci] for a in ray_dev]
+
+        s_val = float(s_val_schedule(global_step, cfg_m.s_ratio, cfg_m.s_start,
+                                     cfg_m.step_start))
+        step_fn = build_step(global_step)
+        tv_on = 1.0 if schedules.tv_active(global_step, cfg_train) else 0.0
+        # the step's scalars in one non-blocking copy: s_val, tv_on, lrs
+        names = list(lr_state.lrs)
+        scal = to_device([s_val, tv_on] + [lr_state.lrs[k] for k in names],
+                         dev, torch.float32)
+        lrs = dict(zip(names, scal[2:]))
+        params, opt_state, metrics = step_fn(
+            params, opt_state, buffers, *batch, scal[0], lrs, scal[1])
+
+        # host-side schedule updates (end of step)
+        schedules.update_lrs(lr_state, global_step, cfg_train)
+        schedules.apply_tv_updates(tv_terms, global_step, cfg_train)
+
+        # step-indexed model mutations: each is a new config, hence a new step
+        s_updates = cfg_model_blk.get("s_updates", {})
+        if (global_step - 1) in s_updates:
+            cfg_m = dataclasses.replace(cfg_m, **s_updates[global_step - 1])
+            log.info(f"[{stage}] s_updates at {global_step - 1}: "
+                     f"{s_updates[global_step - 1]}")
+        smooth_updates = cfg_model_blk.get("smooth_updates", {})
+        if (global_step - 1) in smooth_updates:
+            upd = {("smooth_ksize" if k_ == "ksize" else
+                    "smooth_sigma" if k_ == "sigma" else k_): v_
+                   for k_, v_ in smooth_updates[global_step - 1].items()}
+            cfg_m = dataclasses.replace(cfg_m, **upd)
+            log.info(f"[{stage}] smooth_updates at {global_step - 1}: {upd}")
+
+        # metrics stay on the device until the i_print flush
+        pending.append(metrics)
+        if global_step % i_print == 0 or global_step == n_iters:
+            got = fetch_metrics(pending)
+            pending = []
+            means = last_metrics = {
+                k_: float(np.mean([m[k_] for m in got])) for k_ in got[0]}
+            psnrs = [-10.0 * np.log10(max(float(m["mse"]), 1e-12))
+                     for m in got]
+            psnr_hist.extend(psnrs)
+            log.info(
+                f"[{stage}] iter {global_step:6d}/{n_iters} "
+                f"loss {means['loss']:.6f} PSNR {np.mean(psnrs):5.2f} "
+                f"Wmax {means['wmax_mean']:.3f} Wsum {means['wsum_mean']:.3f} "
+                f"W>0 {means['w_nonzero_frac']:.3f} "
+                f"mask% {100 * means['mask_frac']:.2f} "
+                f"ovf% {100 * means['overflow_frac']:.3f} s {s_val:.4g} "
+                f"eps {time.time() - t0:.0f}s")
+            if means.get("overflow_frac", 0.0) > 0.0:
+                if cfg_train.get("capacity_auto_escalate", True):
+                    upd = {}
+                    if means.get("overflow_sample_frac", 0.0) > 0.0:
+                        upd["sample_k"] = _next_capacity(cfg_m.sample_k,
+                                                         cfg_m.s_max)
+                    if means.get("overflow_shade_frac", 0.0) > 0.0:
+                        upd["shade_k"] = _next_capacity(cfg_m.shade_k,
+                                                        cfg_m.s_max)
+                    upd = {k_: v_ for k_, v_ in upd.items()
+                           if v_ != getattr(cfg_m, k_)}
+                    if upd:
+                        cfg_m = dataclasses.replace(cfg_m, **upd)
+                        log.warning(
+                            f"[{stage}] capacity overflow on "
+                            f"{100 * means['overflow_frac']:.2f}% of rays — "
+                            f"auto-escalating {upd} (s_max={cfg_m.s_max})")
+                else:
+                    log.warning(
+                        f"[{stage}] capacity overflow on "
+                        f"{100 * means['overflow_frac']:.2f}% of rays "
+                        f"(sample_k={cfg_m.sample_k}, shade_k={cfg_m.shade_k}, "
+                        f"s_max={cfg_m.s_max}): samples are being dropped and "
+                        f"accuracy degrades — raise sample_k/shade_k (or set "
+                        f"them to -1 for exact auto-capacity)")
+
+        # periodic validation: one random test view, every view at the end
+        if i_validate and (global_step % i_validate == 0
+                           or global_step == n_iters):
+            from fgs_nerf_tpu_torch.eval.render import (
+                make_render_fn, render_viewpoints,
+            )
+
+            i_test = np.asarray(data_dict["i_test"])
+            pick = ([int(rng.integers(0, len(i_test)))]
+                    if global_step != n_iters else list(range(len(i_test))))
+            sel_views = i_test[pick]
+            rc = make_render_fn(cfg_m, box, near=near, bg=bg)
+            render_viewpoints(
+                rc, params, buffers, np.asarray(data_dict["poses"])[sel_views],
+                np.asarray(data_dict["HW"])[sel_views],
+                np.asarray(data_dict["Ks"])[sel_views], conv, s_val,
+                gt_imgs=np.asarray(data_dict["images"])[sel_views],
+                masks=np.asarray(data_dict["masks"])[sel_views],
+                savedir=os.path.join(out_dir, f"render_test_{stage}"),
+                eval_ssim=True, logger=log, step=global_step)
+
+        if (global_step == n_iters
+                or global_step % int(cfg_train.get("save_iter", 1 << 30)) == 0):
+            ckpt_lib.save_checkpoint(
+                ckpt_path, global_step=global_step, params=params,
+                opt_state=opt_state, sdf_mask=M.build_sdf_mask(params, cfg_m),
+                model_kwargs=dataclasses.asdict(cfg_m),
+                xyz_min=box.xyz_min, xyz_max=box.xyz_max, lrs=lr_state.lrs)
+            log.info(f"[{stage}] checkpoint saved at {ckpt_path}")
+
+    return StageResult(params=params, cfg_model=cfg_m, box=box,
+                       ckpt_path=ckpt_path, psnr_history=psnr_hist,
+                       last_metrics=last_metrics, kept_ratio=kept_ratio)

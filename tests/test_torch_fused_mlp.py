@@ -1,0 +1,213 @@
+"""Kernels B8/B9 (the fused channel-major MLP) on the CPU: the port's
+plain twins against the Pallas kernels in interpret mode, and the
+port's autograd op against the JAX op's CPU gradients.
+
+Tolerances: the forward twin repeats the kernel's bf16 roundings and
+sums in float32, so it agrees with the interpreted kernel to 1e-5, but
+for the few outputs behind a hidden value that an f32 reassociation
+rounds to the neighbouring bf16 value (at most 0.5% of outputs, each
+within 1e-3).  The backward twin rounds each layer's cotangent
+to bf16 where the TPU kernel does; an f32 reassociation can move one of
+those roundings by one bf16 ulp, so the backward agrees to relative L2
+1e-3 (the B4 tolerance).  Both tolerances reject the twin with a bf16
+rounding left out (``test_tolerances_reject_a_twin_without_its_roundings``:
+dropping the ``dz`` rounding moves some cotangent past 2e-3).
+The JAX op on the CPU differentiates the reference with f32 cotangents
+instead, so the op's gradients agree with it at the 2e-2 bf16 scale of
+``tests/test_fused_mlp.py``.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fgs_nerf_tpu.ops.pallas import fused_mlp_cm as J
+from fgs_nerf_tpu_torch.ops import fused_mlp_cm as T
+
+BS = 256
+SHAPES = {
+    # the shapes of tests/test_fused_mlp.py
+    "refnet-like": ((12, 33, 33, 3, 9), (90, 64, 64, 3)),
+    # a 256-wide last layer and 8-but-not-16 multiple widths
+    "rgbnet-like": ((12, 33, 21, 1, 24, 12, 3), (106, 40, 40, 24)),
+}
+
+
+def _setup(rng, rows, dims, m=4 * BS):
+    blocks = [rng.normal(size=(r, m)).astype(np.float32) * 0.5 for r in rows]
+    weights = [(rng.normal(size=(i, o)) / np.sqrt(i)).astype(np.float32)
+               for i, o in zip(dims[:-1], dims[1:])]
+    biases = [rng.normal(size=(o,)).astype(np.float32) * 0.1 for o in dims[1:]]
+    return blocks, weights, biases
+
+
+def _t(xs):
+    return [torch.as_tensor(x) for x in xs]
+
+
+def _j(xs):
+    return [jnp.asarray(x) for x in xs]
+
+
+def _flip_share(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    return float((np.abs(got - want) > 1e-5 + 1e-5 * np.abs(want)).mean())
+
+
+def _assert_close_but_bf16_flips(got, want):
+    assert _flip_share(got, want) <= 5e-3, _flip_share(got, want)
+    assert np.abs(np.asarray(got) - np.asarray(want)).max() <= 1e-3
+
+
+def _outputs(bwd):
+    """(dx, dWs, dbs) -> one flat list."""
+    dx, dws, dbs = bwd
+    return [dx, *dws, *dbs]
+
+
+def _rel_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_fwd(name):
+    """(inputs, the interpreted B8's output) on seed 0."""
+    rows, dims = SHAPES[name]
+    blocks, weights, biases = _setup(np.random.default_rng(0), rows, dims)
+    want = J.fused_mlp_cm_fwd_pallas(tuple(_j(blocks)), _j(weights),
+                                     _j(biases), tuple(rows), bs=BS,
+                                     interpret=True)
+    return (blocks, weights, biases), np.asarray(want)
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_bwd(name):
+    """(inputs with g, the interpreted B9's dx, dWs and dbs) on seed 1."""
+    rows, dims = SHAPES[name]
+    rng = np.random.default_rng(1)
+    blocks, weights, biases = _setup(rng, rows, dims)
+    g = rng.normal(size=(dims[-1], blocks[0].shape[1])).astype(np.float32)
+    dx_j, dws_j, dbs_j = J.fused_mlp_cm_bwd_pallas(
+        tuple(_j(blocks)), _j(weights), _j(biases), jnp.asarray(g),
+        tuple(rows), bs=BS, interpret=True)
+    return ((blocks, weights, biases, g),
+            [np.asarray(x) for x in [dx_j, *dws_j, *dbs_j]])
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_forward_twin_matches_pallas_interpret(name):
+    (blocks, weights, biases), want = _pallas_fwd(name)
+    got = T.fused_mlp_cm_fwd(_t(blocks), _t(weights), _t(biases))
+    assert got.shape == (SHAPES[name][1][-1], blocks[0].shape[1])
+    _assert_close_but_bf16_flips(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_backward_twin_matches_pallas_interpret(name):
+    (blocks, weights, biases, g), want = _pallas_bwd(name)
+    got = T.fused_mlp_cm_bwd(_t(blocks), _t(weights), _t(biases),
+                             torch.as_tensor(g))
+    for a, b in zip(_outputs(got), want):
+        assert a.shape == b.shape
+        assert _rel_l2(a.numpy(), b) < 1e-3
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_tolerances_reject_a_twin_without_its_roundings(name):
+    """The forward and backward tolerances above are tight enough to tell
+    a function that leaves out one of the TPU kernel's bf16 roundings:
+    hiddens kept in f32 move most outputs past 1e-5, and an unrounded
+    ``dz`` moves some cotangent past 2e-3 (relative L2), twice the 1e-3
+    limit."""
+    (blocks, weights, biases), want = _pallas_fwd(name)
+    got = T.fused_mlp_cm_fwd_plain(_t(blocks), _t(weights), _t(biases),
+                                   round_hidden=False)
+    assert _flip_share(got.numpy(), want) > 0.5
+    (blocks, weights, biases, g), want = _pallas_bwd(name)
+    for kw in (dict(round_dz=False), dict(round_hidden=False)):
+        got = T.fused_mlp_cm_bwd_plain(
+            _t(blocks), _t(weights), _t(biases), torch.as_tensor(g), **kw)
+        worst = max(_rel_l2(a.numpy(), b) for a, b in zip(_outputs(got), want))
+        assert worst > 2e-3, (kw, worst)
+
+
+def test_op_gradients_match_jax_cpu_op():
+    rows, dims = SHAPES["refnet-like"]
+    rng = np.random.default_rng(2)
+    blocks, weights, biases = _setup(rng, rows, dims, m=BS)
+    ct = rng.normal(size=(dims[-1], BS)).astype(np.float32)
+
+    def f(bl, w, b_):
+        return jnp.sum(J.fused_mlp_cm(tuple(bl), w, b_, BS) * ct)
+
+    # jitted: op by op, the JAX side compiles some 140 small programs
+    want_out = jax.jit(lambda bl, w, b_: J.fused_mlp_cm(tuple(bl), w, b_, BS))(
+        _j(blocks), _j(weights), _j(biases))
+    g_j = jax.jit(jax.grad(f, argnums=(0, 1, 2)))(_j(blocks), _j(weights),
+                                                  _j(biases))
+
+    tb = [t.requires_grad_(True) for t in _t(blocks)]
+    tw = [t.requires_grad_(True) for t in _t(weights)]
+    tbi = [t.requires_grad_(True) for t in _t(biases)]
+    out = T.fused_mlp_cm(tb, tw, tbi, BS)
+    _assert_close_but_bf16_flips(out.detach().numpy(), want_out)
+    (out * torch.as_tensor(ct)).sum().backward()
+    for got_l, want_l in zip((tb, tw, tbi), g_j):
+        for got, want in zip(got_l, want_l):
+            want = np.asarray(want)
+            scale = max(float(np.abs(want).max()), 1e-3)
+            np.testing.assert_allclose(got.grad.numpy() / scale, want / scale,
+                                       rtol=2e-2, atol=2e-2)
+
+
+def test_op_checks_its_preconditions():
+    rows, dims = SHAPES["refnet-like"]
+    blocks, weights, biases = _setup(np.random.default_rng(3), rows, dims,
+                                     m=BS)
+    with pytest.raises(ValueError, match="multiple of bs"):
+        T.fused_mlp_cm(_t(blocks), _t(weights), _t(biases), bs=3 * BS)
+    bad = [np.zeros((90, 60), np.float32)] + weights[1:]
+    bad[1] = np.zeros((60, 64), np.float32)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        T.fused_mlp_cm(_t(blocks), _t(bad), _t(biases), bs=BS)
+
+
+def test_deep_net_cotangents_move_with_the_sum_order():
+    """Why the card checks hold B9 on the fine head's 4-layer, 256-wide
+    nets to relative L2 2.5e-3 (5e-3 on random inputs) and not B4's
+    1e-3, and why they add a dx-share check: the twin itself, summed in
+    float64 instead of float32 with every bf16 rounding kept, moves its
+    cotangents by about 1e-3 (each one-ulp landing of a rounded cotangent
+    propagates down the layers), so a kernel with a third sum order can
+    sit past 1e-3 from the twin on sum order alone.  Leaving the ``dz``
+    rounding out moves the worst of them past 2.5e-3 but not far, while
+    it moves most samples' dx past 1e-4 of dx's RMS, where the sum order
+    moves under 1% of them."""
+    rng = np.random.default_rng(6)
+    m = 16384
+    rows, dims = (256, 51), (307, 256, 256, 256, 3)
+    blocks, weights, biases = _setup(rng, rows, dims, m=m)
+    g = rng.normal(size=(dims[-1], m)).astype(np.float32)
+    f32 = T.fused_mlp_cm_bwd_plain(_t(blocks), _t(weights), _t(biases),
+                                   torch.as_tensor(g))
+    f64 = T.fused_mlp_cm_bwd_plain(
+        [t.double() for t in _t(blocks)], [t.double() for t in _t(weights)],
+        [t.double() for t in _t(biases)], torch.as_tensor(g).double())
+    rel = _rel_l2(f32[0].numpy(), f64[0].numpy())
+    assert 5e-4 < rel < 5e-3, rel
+    no_dz = T.fused_mlp_cm_bwd_plain(_t(blocks), _t(weights), _t(biases),
+                                     torch.as_tensor(g), round_dz=False)
+    worst = max(_rel_l2(a.numpy(), b.numpy())
+                for a, b in zip(_outputs(no_dz), _outputs(f32)))
+    assert worst > 2.5e-3, worst
+
+    def dx_share(dx, ref):
+        return float(((dx - ref).abs() > 1e-4 * ref.pow(2).mean().sqrt())
+                     .double().mean())
+
+    assert dx_share(f64[0].float(), f32[0]) < 0.01
+    assert dx_share(no_dz[0], f32[0]) > 0.5

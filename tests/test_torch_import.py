@@ -42,7 +42,22 @@ def test_port_imports_no_jax():
                  "fgs_nerf_tpu_torch.data.synthetic",
                  "fgs_nerf_tpu_torch.eval.metrics",
                  "fgs_nerf_tpu_torch.eval.render",
-                 "fgs_nerf_tpu_torch.convert"):
+                 "fgs_nerf_tpu_torch.convert",
+                 "fgs_nerf_tpu_torch.config.base",
+                 "fgs_nerf_tpu_torch.config.scenes",
+                 "fgs_nerf_tpu_torch.train.schedules",
+                 "fgs_nerf_tpu_torch.train.checkpoint",
+                 "fgs_nerf_tpu_torch.train.stage_common",
+                 "fgs_nerf_tpu_torch.train.bbox",
+                 "fgs_nerf_tpu_torch.train.pipeline",
+                 "fgs_nerf_tpu_torch.data.dataset",
+                 "fgs_nerf_tpu_torch.data.blender",
+                 "fgs_nerf_tpu_torch.eval.image_io",
+                 "fgs_nerf_tpu_torch.eval.mesh",
+                 "fgs_nerf_tpu_torch.eval.evaluator",
+                 "fgs_nerf_tpu_torch.ops.fused_mlp_cm",
+                 "fgs_nerf_tpu_torch.ops.cuda.fused_mlp_cm",
+                 "fgs_nerf_tpu_torch.run"):
         assert name in res["modules"]
 
 
@@ -63,12 +78,12 @@ def test_entry_points_default_to_the_card():
 
 def test_kernel_sources_and_wrappers():
     from fgs_nerf_tpu_torch.ops.cuda import (
-        fused_shade_cm, scatter_combine, scatter_combine_cm, tap_serve_cm,
-        window_gather_cm,
+        fused_mlp_cm, fused_shade_cm, scatter_combine, scatter_combine_cm,
+        tap_serve_cm, window_gather_cm,
     )
 
     for mod in (window_gather_cm, scatter_combine_cm, fused_shade_cm,
-                tap_serve_cm, scatter_combine):
+                tap_serve_cm, scatter_combine, fused_mlp_cm):
         k = mod.KERNEL
         assert k.source.exists(), k.source
         text = k.source.read_text()
