@@ -277,7 +277,8 @@ _BUCKETS = (  # kernel-name fragments -> bucket, first match wins
     ("accumulate B6", ("tap_run_starts", "tap_chunk_sums",
                        "tap_dense_accumulate")),
     ("serve B1", ("window_gather_cm",)),
-    ("accumulate B2", ("run_starts", "chunk_sums", "dense_accumulate_cm")),
+    ("accumulate B2", ("cm_tile_accumulate", "cm_block_sums",
+                       "cm_run_totals")),
     ("shade B3", ("fused_shade_fwd",)),
     ("shade B4", ("fused_shade_bwd", "reduce_partials")),
     ("matmul", ("gemm", "Gemm", "cutlass")),

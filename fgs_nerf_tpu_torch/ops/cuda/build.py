@@ -5,7 +5,8 @@ Each kernel source ``csrc/<name>.cu`` exports plain C launchers
 ``cudaGetLastError()``).  At first use it is compiled with ``nvcc`` for
 ``sm_90a`` into ``fgs_nerf_tpu_torch/_build/`` (git-ignored), named by
 the hash of its source so a changed source is rebuilt, and loaded with
-``ctypes``.  ``build_all`` starts one ``nvcc`` per source at once.
+``ctypes``; the hash covers the shared headers ``csrc/*.cuh`` too.
+``build_all`` starts one ``nvcc`` per source at once.
 
 A build failure raises; a launcher returning a nonzero CUDA error code
 raises.  Nothing here falls back to the plain PyTorch paths: the
@@ -64,7 +65,10 @@ class CudaKernel:
         return str(self.source.relative_to(_PKG_DIR.parent))
 
     def _paths(self):
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:12]
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC_DIR.glob("*.cuh")):  # shared device code
+            h.update(header.read_bytes())
+        digest = h.hexdigest()[:12]
         stem = BUILD_DIR / f"lib{self.source.stem}_{digest}"
         return stem.with_suffix(".so"), stem.with_suffix(".log")
 

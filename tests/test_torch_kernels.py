@@ -7,11 +7,14 @@ on a machine with the card and without JAX run them with
 plain twins are what the CPU parity tests hold against the JAX package.
 
 Tolerances: B1 and B5 sum in the plain version's order with IEEE
-multiplies/adds, so they must match bit for bit; B2 and B6 add runs of
-up to 512 deposits in the CPU twin's order and match it bit for bit
-there (longer runs go through block sums: reassociation), while on the
-card the twins' ``index_add_`` adds in any order (a 500-sample run of
-one row reassociates to ~4e-5), 1e-4; B3/B4 share
+multiplies/adds, so they must match bit for bit; B2, B6 and B7 add runs
+of up to 512 deposits in the CPU twin's order and match it bit for bit
+there (longer runs go through block sums: reassociation, within 1e-4 of
+the largest value), while on the card the twins' ``index_add_`` adds in
+any order (a 500-sample run of one row reassociates to ~4e-5), 1e-4;
+B2 and B7 run on the edge streams of ``tests/test_torch_streams.py``
+(tile boundaries, runs of 2 x CHUNK and one more, spans past the
+shared-memory stage, empty tiles, the first and last rows); B3/B4 share
 every bf16 rounding with their twins but sum in another order, so a
 hidden value can land one bf16 ulp away (logits within 1e-2, at most
 1% past 1e-5; cotangents rel L2 1e-3); so do B8/B9, with the same
@@ -43,6 +46,7 @@ from fgs_nerf_tpu_torch.ops.cuda import tap_serve_cm as B56
 from fgs_nerf_tpu_torch.ops.cuda import window_gather_cm as B1
 from fgs_nerf_tpu_torch.train.losses import LossWeights
 from fgs_nerf_tpu_torch.train.trainer import make_loss_and_grads
+import test_torch_streams as STREAMS
 
 PE = (5, 5, 1)
 
@@ -82,39 +86,61 @@ def _rel_l2(a, b):
     return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
 
 
-def test_b1_b2_match_plain(cuda):
+def _check_b2(cuda, rows, w8, g, r):
+    """B2 on a stream against its CPU twin (runs of up to 2 x CHUNK on
+    both halves of a row bit for bit, the rest within 1e-4 of the largest
+    value) and its card twin (``index_add_``: 1e-4), and on a repeat."""
+    keys, w8c, gc = (torch.from_numpy(a).to(cuda) for a in (rows, w8, g))
+    n0 = B2.KERNEL.launches["dense_accumulate_cm"]
+    got = B2.dense_accumulate_cm(keys, w8c, gc, r)
+    torch.cuda.synchronize()
+    assert B2.KERNEL.launches["dense_accumulate_cm"] == n0 + 1
+    assert got.shape == (4 * g.shape[0], r) and got.dtype == torch.float32
+    cpu = B2.dense_accumulate_cm_plain(*(torch.from_numpy(a)
+                                         for a in (rows, w8, g)), r)
+    short = torch.from_numpy(STREAMS.b2_short_rows(rows, r))
+    assert torch.equal(got.cpu()[:, short], cpu[:, short])
+    scale = float(cpu.abs().max())
+    assert float((got.cpu() - cpu).abs().max()) <= 1e-4 * scale
+    want = B2.dense_accumulate_cm_plain(keys, w8c, gc, r)
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+    assert torch.equal(got, B2.dense_accumulate_cm(keys, w8c, gc, r))
+
+
+def _sentinel_stream(c):
+    """Rows of a 20 x 21 x 22 grid with a 500-sample run and 3,000
+    sentinel keys, as the sorted engine deposits them."""
     rng = np.random.default_rng(5)
-    grid, c, m, n_sent = (20, 21, 22), 16, 40000, 3000
+    grid, m, n_sent = (20, 21, 22), 40000, 3000
     r = ST.padded_rows_cm(grid)
     zp = ST.z_stride(grid[2])
     b = np.stack([rng.integers(0, s + 1, size=m - n_sent) for s in grid], -1)
     rows = (b[:, 0] * (grid[1] + 2) + b[:, 1]) * zp + b[:, 2]
     rows[:500] = rows[0]
-    keys = torch.from_numpy(np.sort(np.concatenate(
-        [rows, np.full(n_sent, r)])).astype(np.int32)).to(cuda)
-    w8 = torch.from_numpy(rng.uniform(size=(8, m)).astype(np.float32)).to(cuda)
-    g = torch.from_numpy(rng.normal(size=(c, m)).astype(np.float32)).to(cuda)
-    field = torch.from_numpy(rng.normal(size=(c, *grid)).astype(np.float32)).to(cuda)
-    pack = ST.build_cell_pack_cm(field, ST.rp_for(grid))
+    keys = np.sort(np.concatenate([rows, np.full(n_sent, r)])).astype(np.int32)
+    w8 = rng.uniform(size=(8, m)).astype(np.float32)
+    g = rng.normal(size=(c, m)).astype(np.float32)
+    field = rng.normal(size=(c, *grid)).astype(np.float32)
+    return grid, keys, w8, g, field, r
 
+
+@pytest.mark.parametrize("c", STREAMS.B2_CHANNELS)
+@pytest.mark.parametrize("case", ["sentinels", *STREAMS.CASES])
+def test_b1_b2_match_plain(cuda, case, c):
+    if case != "sentinels":
+        _check_b2(cuda, *STREAMS.b2_stream(case, c))
+        return
+    grid, keys, w8, g, field, r = _sentinel_stream(c)
+    keys_d, w8_d = torch.from_numpy(keys).to(cuda), torch.from_numpy(w8).to(cuda)
+    pack = ST.build_cell_pack_cm(torch.from_numpy(field).to(cuda),
+                                 ST.rp_for(grid))
     n0 = B1.KERNEL.launches["window_gather_cm"]
-    got = B1.window_gather_cm(pack, keys, w8)
+    got = B1.window_gather_cm(pack, keys_d, w8_d)
     torch.cuda.synchronize()
     assert B1.KERNEL.launches["window_gather_cm"] == n0 + 1
-    assert torch.equal(got, B1.window_gather_cm_plain(pack, keys, w8))
-
-    kc = torch.clamp(keys, max=r - 2)
-    got = B2.dense_accumulate_cm(kc, w8, g, r)
-    torch.cuda.synchronize()
-    # runs of up to 512 samples add in sample order, as the CPU twin does:
-    # bit for bit; the 3,000-sample sentinel run (rows r-2, r-1) goes
-    # through the kernel's block sums: float32 reassociation
-    cpu = B2.dense_accumulate_cm_plain(kc.cpu(), w8.cpu(), g.cpu(), r)
-    assert torch.equal(got.cpu()[:, :r - 2], cpu[:, :r - 2])
-    torch.testing.assert_close(got.cpu(), cpu, rtol=1e-5, atol=1e-4)
-    torch.testing.assert_close(got, B2.dense_accumulate_cm_plain(kc, w8, g, r),
-                               rtol=1e-4, atol=1e-4)
-    assert torch.equal(got, B2.dense_accumulate_cm(kc, w8, g, r))
+    assert torch.equal(got, B1.window_gather_cm_plain(pack, keys_d, w8_d))
+    # sentinels clamp to r - 2: a 3,000-sample run through block sums
+    _check_b2(cuda, np.minimum(keys, r - 2), w8, g, r)
 
 
 @pytest.mark.parametrize("hid", FS.KERNEL_HIDDENS)
@@ -294,10 +320,9 @@ def test_fine_step_kernels_match_plain(cuda):
             assert _rel_l2(gk[net][name], gp[net][name]) < 1e-3
 
 
-@pytest.mark.parametrize("c", [8, 104, 128])
-def test_b7_matches_plain(cuda, c):
-    """Sorted rows with gaps, duplicates, a 3,000-sample run (past the
-    2 x CHUNK threshold) and the last row of the space."""
+def _mixed_stream(c):
+    """Sorted rows with gaps, duplicates, a ~600-sample run, a
+    3,000-sample run and the last row of the space."""
     rng = np.random.default_rng(c)
     cap, m = 50000, 30000
     rows = np.sort(rng.integers(0, cap, size=m))
@@ -305,7 +330,16 @@ def test_b7_matches_plain(cuda, c):
     rows[10000:13000] = rows[10000]          # a 3,000-sample run
     rows[-5:] = cap - 1
     rows = np.sort(rows).astype(np.int32)
-    upd = rng.normal(size=(m, c)).astype(np.float32)
+    return rows, rng.normal(size=(m, c)).astype(np.float32), cap
+
+
+@pytest.mark.parametrize("c", STREAMS.B7_CHANNELS)
+@pytest.mark.parametrize("case", ["mixed", *STREAMS.CASES])
+def test_b7_matches_plain(cuda, case, c):
+    """B7 against its CPU twin (runs of up to 2 x CHUNK bit for bit, the
+    rest within 1e-4 of the largest value), its card twin and a repeat."""
+    rows, upd, cap = (_mixed_stream(c) if case == "mixed"
+                      else STREAMS.b7_stream(case, c))
     cpu = (torch.from_numpy(rows), torch.from_numpy(upd))
     r, u = (a.to(cuda) for a in cpu)
     n0 = B7.KERNEL.launches["dense_accumulate"]
@@ -314,9 +348,9 @@ def test_b7_matches_plain(cuda, c):
     assert B7.KERNEL.launches["dense_accumulate"] == n0 + 1
     assert got.shape == (cap, c) and got.dtype == torch.float32
     want_cpu = B7.dense_accumulate_plain(*cpu, cap)
-    counts = np.bincount(rows, minlength=cap)
-    short = counts <= 2 * B7.CHUNK
-    assert (~short).sum() == 2 and (counts == 0).any()
+    short = torch.from_numpy(STREAMS.b7_short_rows(rows, cap))
+    if case == "mixed":
+        assert (~short).sum() == 2 and bool((want_cpu == 0).all(1).any())
     assert torch.equal(got.cpu()[short], want_cpu[short])
     scale = float(want_cpu.abs().max())
     assert float((got.cpu() - want_cpu).abs().max()) <= 1e-4 * scale

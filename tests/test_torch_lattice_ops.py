@@ -16,11 +16,17 @@ Tolerances and why:
   Pallas kernel casts the updates to bf16 (`scatter_combine.py:149`), so
   the updates are made bf16-representable; its one-hot MXU product then
   sums exact products in float32 in another order: rtol 1e-5 (atol 1e-5
-  for sums that cancel to near zero).
+  for sums that cancel to near zero).  On the edge streams of
+  ``test_torch_streams.py`` the twin equals the JAX CPU accumulate bit
+  for bit, and the Pallas kernel on integer-valued updates (exact in
+  bf16, every partial sum exact in float32, so any order gives the same
+  floats) at the streams' small row spaces.
 * gathers, taps and lookups: the same float32 expressions on both sides,
   values within 1e-6; gradients by reassociation within 1e-5; boolean
   lookups exactly.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -45,6 +51,7 @@ from fgs_nerf_tpu_torch.ops.encoding import freq_bank, sincos_encode
 from fgs_nerf_tpu_torch.ops.ray_sample import sample_along_rays
 from fgs_nerf_tpu_torch.ops.scatter import corner_scatter_grid_grad
 from fgs_nerf_tpu_torch.ops.sdf2alpha import neus_alpha
+from test_torch_streams import B7_CHANNELS, CASES, b7_stream
 
 XYZ_MIN = np.array([-1.0, -1.0, -1.0], np.float32)
 XYZ_MAX = np.array([1.0, 1.0, 1.0], np.float32)
@@ -145,6 +152,34 @@ def test_b7_twin_matches_pallas_interpret():
     got = B7.dense_accumulate(torch.from_numpy(rows), torch.from_numpy(upd),
                               cap).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+_accumulate_jit = jax.jit(dense_accumulate_j, static_argnums=2)
+_pallas_jit = jax.jit(functools.partial(dense_accumulate_pallas, block=512,
+                                        interpret=True), static_argnums=2)
+
+
+@pytest.mark.parametrize("c", B7_CHANNELS)
+@pytest.mark.parametrize("case", CASES)
+def test_b7_twin_matches_jax_cpu_accumulate_on_edge_streams(case, c):
+    rows, upd, cap = b7_stream(case, c)
+    want = np.asarray(_accumulate_jit(jnp.asarray(rows), jnp.asarray(upd),
+                                      cap))
+    got = B7.dense_accumulate(torch.from_numpy(rows), torch.from_numpy(upd),
+                              cap)
+    assert got.shape == (cap, c) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("c", [1, 128])  # C = 8: the JAX CPU cases above
+@pytest.mark.parametrize("case", ["two_chunks", "edges", "one", "short"])
+def test_b7_twin_matches_pallas_interpret_on_edge_streams(case, c):
+    rows, upd, cap = b7_stream(case, c)
+    upd = np.round(upd * 4.0).astype(np.float32)
+    want = np.asarray(_pallas_jit(jnp.asarray(rows), jnp.asarray(upd), cap))
+    got = B7.dense_accumulate(torch.from_numpy(rows), torch.from_numpy(upd),
+                              cap).numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 def _grid_and_points(seed, shape, m, lo=-1.1, hi=1.1):

@@ -8,8 +8,11 @@ custom VJP.  Streams include duplicate rows, gaps, sentinel keys and a
 length that is not a multiple of the JAX block (its padding path).
 Tolerance: float32 trilinear sums in the same order, 1e-6; the
 accumulate adds the same terms in the same order (serial scatters on
-both sides), 1e-6.  The CUDA kernels themselves are checked against
-these plain twins on the card by ``tests/test_torch_kernels.py``.
+both sides), 1e-6; on the edge streams of ``test_torch_streams.py``
+the accumulate twin equals the reference bit for bit (both scatter the
+dz = 0 updates, then the dz = 1 updates, serially in sample order).  The
+CUDA kernels themselves are checked against these plain twins on the
+card by ``tests/test_torch_kernels.py``, on the same edge streams.
 """
 import jax
 import jax.numpy as jnp
@@ -24,6 +27,7 @@ from fgs_nerf_tpu.ops.pallas.window_gather_cm import sorted_window_gather_cm_ref
 from fgs_nerf_tpu_torch.ops import sorted_cm as ST
 from fgs_nerf_tpu_torch.ops.cuda import scatter_combine_cm as B2
 from fgs_nerf_tpu_torch.ops.cuda import window_gather_cm as B1
+from test_torch_streams import B2_CHANNELS, CASES, b2_stream
 
 
 def T(a):
@@ -84,6 +88,20 @@ def test_serve_and_accumulate_plain_match_references():
         np.asarray(dense_accumulate_cm_reference(jnp.asarray(kc), jnp.asarray(w8),
                                                  jnp.asarray(g), r)),
         rtol=1e-6, atol=1e-6)
+
+
+_reference_jit = jax.jit(dense_accumulate_cm_reference, static_argnums=3)
+
+
+@pytest.mark.parametrize("c", B2_CHANNELS)
+@pytest.mark.parametrize("case", CASES)
+def test_accumulate_plain_matches_reference_on_edge_streams(case, c):
+    rows, w8, g, r = b2_stream(case, c)
+    want = np.asarray(_reference_jit(
+        jnp.asarray(rows), jnp.asarray(w8), jnp.asarray(g), r))
+    got = B2.dense_accumulate_cm(T(rows), T(w8), T(g), r)
+    assert got.shape == (4 * c, r) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("pack16", [True, False])
