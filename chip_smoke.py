@@ -16,7 +16,10 @@ Phases (any failure raises and exits nonzero, with no result line):
    PyTorch twin (tolerances below), time both with CUDA events, time
    the one PyTorch call that computes the same function where there is
    one, and compute the least time the card could take (bytes over
-   3.35 TB/s or operations over the peak rate of their type).
+   3.35 TB/s or operations over the peak rate of their type).  Beside
+   B3 and B4, as context: the bf16 ``torch.matmul`` chain over the same
+   padded products, each kernel's ``ptxas`` registers, stack and spills,
+   and its blocks' dynamic shared memory.
 3. Main path: zero the launch counts, run warm-up and timed train steps
    (``train/trainer.py:make_train_step``), read the counts; the loss
    must be finite and fall, and every kernel must have launched.  Then
@@ -84,8 +87,10 @@ launches) and the whole training pipeline:
     rung's step time (each step followed by a synchronize), world size,
     the mask-cache ray filter's kept share, peak memory, launches by
     kernel and checkpoint write time; then the test-view render, PSNR,
-    SSIM and the 512^3 mesh.  Every kernel call of the first step at each
-    stage's last rung is recorded (bbox-shrunk grids, mask-cache-filtered
+    SSIM, LPIPS(alex) (``--eval_lpips 1``: the seed-0 fallback weights
+    unless ``FGS_LPIPS_WEIGHTS`` names a file) and the 512^3 mesh.
+    Every kernel call of the first step at each stage's last rung is
+    recorded (bbox-shrunk grids, mask-cache-filtered
     rays, the geometry stage's 128-wide refnet) and held against its twin
     as in phases 2 and 5, timed and bounded.  Checks: finite losses and
     PSNR, every checkpoint loads with its stage's voxel budget, every
@@ -280,7 +285,8 @@ _BUCKETS = (  # kernel-name fragments -> bucket, first match wins
     ("accumulate B2", ("cm_tile_accumulate", "cm_block_sums",
                        "cm_run_totals")),
     ("shade B3", ("fused_shade_fwd",)),
-    ("shade B4", ("fused_shade_bwd", "reduce_partials")),
+    ("shade B4", ("fused_shade_bwd", "fused_shade_dw",
+                  "shade_reduce_partials")),
     ("matmul", ("gemm", "Gemm", "cutlass")),
     ("sort", ("sort", "radix", "Sort")),
     ("gather/scatter", ("index", "gather", "scatter", "Index")),
@@ -464,6 +470,96 @@ def _mlp_bwd_flops(ws, m):
     return 2 * m * (sum(macs[:-1]) + 2 * sum(macs))
 
 
+def _ptxas(kernel, fragments):
+    """Registers, static shared memory, stack and spill bytes of each
+    kernel entry of ``kernel`` whose mangled name holds one of
+    ``fragments``, from its ``nvcc -Xptxas -v`` log."""
+    import re
+
+    out, cur = {}, None
+    for line in kernel.build_log().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = (m.group(1) if any(f in m.group(1) for f in fragments)
+                   else None)
+            if cur:
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(stack_bytes=int(m.group(1)),
+                            spill_store_bytes=int(m.group(2)),
+                            spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[cur]["static_smem_bytes"] = int(m.group(1)) if m else 0
+    return out
+
+
+# B3 / B4 call site -> fragments of its kernels' mangled names
+_SHADE_ENTRIES = {"fused_shade_cm_fwd": ("fused_shade_fwd",),
+                  "fused_shade_cm_bwd": ("fused_shade_bwd", "fused_shade_dw",
+                                         "shade_reduce_partials")}
+
+
+def _shade_smem(args):
+    """Dynamic shared memory per block of B3, B4's per-tile pass and B4's
+    dW kernel for one recorded call (the launchers' own formulas)."""
+    import ctypes
+
+    from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
+
+    k0, vd, ws = args[0], args[4], args[5]
+    f = FS.KERNEL.lib().fused_shade_smem_bytes
+    f.argtypes = [ctypes.c_int] * 4
+    f.restype = ctypes.c_longlong
+    cin8 = FS.pad_plan(FS.shade_layout(k0.shape[0], *args[-3:],
+                                       vd is not None))[1]
+    nraw = k0.shape[0] + 9 + 3 * (vd is not None)
+    return {name: f(cin8, ws[0].shape[1], nraw, i)
+            for i, name in enumerate(("fwd", "bwd", "dw"))}
+
+
+def _shade_chain_ms(torch, args, backward):
+    """Context for B3 / B4, no port: the bf16 ``torch.matmul`` chain over
+    the same padded products (forward: the three layers; backward: layers
+    0-1 recomputed, then a dW and a dh product per layer), on operands
+    made before the timed region."""
+    from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
+
+    k0, xyz, refl, normal, vd, ws, bs = args[:7]
+    pe = args[-3:]
+    rows = FS.shade_layout(k0.shape[0], *pe, vd is not None)
+    wps, bps = FS.pad_weights(ws, bs, rows)
+    w = [x.to(torch.bfloat16) for x in wps]
+    b = [x.to(torch.bfloat16) for x in bps]
+    x = FS.build_shade_x(k0, xyz, refl, normal, vd, *pe).T.to(torch.bfloat16)
+
+    def fwd():
+        h1 = torch.relu(x @ w[0] + b[0])
+        h2 = torch.relu(h1 @ w[1] + b[1])
+        return h1, h2, h2 @ w[2]
+
+    if not backward:
+        return _time_ms(fwd, 3, torch)
+    h1, h2, _ = fwd()
+    dz = [torch.empty_like(h1).normal_(), torch.empty_like(h2).normal_(),
+          torch.empty((x.shape[0], w[2].shape[1]), dtype=torch.bfloat16,
+                      device=x.device).normal_()]
+
+    def bwd():
+        a1, a2, _ = fwd()
+        return (a2.T @ dz[2], dz[2] @ w[2].T, a1.T @ dz[1], dz[1] @ w[1].T,
+                x.T @ dz[0], dz[0] @ w[0].T)
+
+    return _time_ms(bwd, 3, torch)
+
+
 def _check_shade_fwd(torch, args, path):
     """B3: within 1e-2 of its twin with at most 1% of the logits past
     1e-5; timed; bound by its products at the bf16 peak."""
@@ -490,7 +586,9 @@ def _check_shade_fwd(torch, args, path):
                 plain_ms=_time_ms(
                     lambda: FS.fused_shade_cm_fwd_plain(*ins, ws, bs, *pe), 3,
                     torch),
-                bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+                bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+                matmul_chain_ms=_shade_chain_ms(torch, args, False),
+                dynamic_smem_bytes=_shade_smem(args))
 
 
 def _check_shade_bwd(torch, args, path):
@@ -526,7 +624,9 @@ def _check_shade_bwd(torch, args, path):
                 plain_ms=_time_ms(
                     lambda: FS.fused_shade_cm_bwd_plain(*ins, ws, bs, g, *pe),
                     2, torch),
-                bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+                bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+                matmul_chain_ms=_shade_chain_ms(torch, args[:7] + args[8:],
+                                                True))
 
 
 def _check_call(torch, name, args, path):
@@ -1103,6 +1203,7 @@ def _pipeline_phase(torch, np, card, repo, kernels, config_text):
     from fgs_nerf_tpu_torch import run as R
     from fgs_nerf_tpu_torch.config.base import load_config
     from fgs_nerf_tpu_torch.eval import evaluator as E
+    from fgs_nerf_tpu_torch.eval import lpips_native as LP
     from fgs_nerf_tpu_torch.ops import sorted_cm as ST
     from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
     from fgs_nerf_tpu_torch.train import checkpoint as CK
@@ -1221,7 +1322,8 @@ def _pipeline_phase(torch, np, card, repo, kernels, config_text):
         return run
 
     argv = ["--mode", "train", "--config", str(cfg_path), "--expname", "run",
-            "--output_dir", str(run_dir), "--device", "cuda", "--i_print", "2"]
+            "--output_dir", str(run_dir), "--device", "cuda", "--i_print", "2",
+            "--eval_lpips", "1"]
     t0 = time.perf_counter()
     with _patched([(TR, "train_stage", timed_stage),
                    (TR, "make_train_step", timed_make_step),
@@ -1284,9 +1386,15 @@ def _pipeline_phase(torch, np, card, repo, kernels, config_text):
     print(json.dumps({"pipeline_eval": {
         "wall_s_total": wall, "views": n_views,
         "s_per_view": t_render / n_views, "psnr": stats["psnr"],
-        "ssim": stats["ssim"], "mesh_resolution": 512, "mesh_s": t_mesh,
+        "ssim": stats["ssim"], "lpips_alex": stats["lpips_alex"],
+        "lpips_weights": LP.weights_path() or "seed-0 fallback",
+        "mesh_resolution": 512, "mesh_s": t_mesh,
         "vertices": len(verts), "triangles": len(tris), "card": card}}))
     _check(bool(np.isfinite(stats["psnr"]).all()), "eval PSNR not finite")
+    if LP.weights_path() or LP.fallback_enabled():
+        _check(len(stats["lpips_alex"]) == n_views
+               and bool(np.isfinite(stats["lpips_alex"]).all()),
+               f"eval LPIPS(alex): {stats['lpips_alex']}")
     for rgb in stats["rgbs"]:
         _check(bool(np.all(np.isfinite(rgb))) and rgb.min() >= 0.0
                and rgb.max() <= 1.0, "eval pixels not finite or outside [0, 1]")
@@ -1537,6 +1645,9 @@ def main():
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "timed_call": main_call,
+            **({"matmul_chain_ms": main["matmul_chain_ms"],
+                "ptxas": _ptxas(kern, _SHADE_ENTRIES[name])}
+               if kern is FS.KERNEL else {}),
             "launches_by_path": by_path,
             "launches_per_step": {
                 "coarse": by_path["coarse"] / (N_WARMUP + N_STEPS),

@@ -42,6 +42,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"  // mma16816, pack2
+
 typedef __nv_bfloat16 bf16;
 
 #define TS 64          // samples per tile
@@ -65,20 +67,6 @@ struct MlpArgs {
   int d_out;              // real outputs of the last layer (<= np[L-1])
   long long M;
 };
-
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);

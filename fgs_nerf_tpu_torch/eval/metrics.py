@@ -1,13 +1,14 @@
-"""Quality metrics: PSNR with foreground/background splits, SSIM.
+"""Quality metrics: PSNR with foreground/background splits, SSIM, LPIPS.
 
 Copies of ``mse2psnr``, ``psnr_splits``, ``rgb_ssim`` and ``to8b`` from
 ``fgs_nerf_tpu/eval/metrics.py:16-89`` and ``:135`` (numpy and scipy;
 the JAX module is free of JAX, but the port imports nothing of the JAX
-package).  LPIPS is not ported: it needs pretrained network weights
-that the repository does not hold.
+package), and ``rgb_lpips`` (``:90-132``) on the port's own LPIPS(alex)
+(``eval/lpips_native.py``).
 """
 from __future__ import annotations
 
+import logging
 from typing import Optional
 
 import numpy as np
@@ -82,6 +83,35 @@ def rgb_ssim(
     denom = (mu00 + mu11 + c1) * (sigma00 + sigma11 + c2)
     ssim_map = numer / denom
     return ssim_map if return_map else float(np.mean(ssim_map))
+
+
+_LPIPS_WARNED = set()
+
+
+def rgb_lpips(np_gt, np_im, net_name="alex", device=None) -> Optional[float]:
+    """LPIPS (`model/evaluation.py:59-74`) on ``device`` (the card
+    unless the caller asks for the CPU); None when unavailable.
+
+    'alex' is the native metric (`eval/lpips_native.py`: the weights of
+    ``FGS_LPIPS_WEIGHTS``, else the seed-0 fallback unless
+    ``FGS_LPIPS_FALLBACK=0``).  'vgg', and 'alex' with the fallback off
+    and no weights file, give None with a once-per-net logged warning,
+    as the JAX package does without the ``lpips`` package; the port
+    computes LPIPS itself and never imports it."""
+    if net_name == "alex":
+        from fgs_nerf_tpu_torch.eval.lpips_native import lpips_native
+
+        val = lpips_native(np_gt, np_im, device=device)
+        if val is not None:
+            return val
+        why = "FGS_LPIPS_FALLBACK=0 and FGS_LPIPS_WEIGHTS names no file"
+    else:
+        why = "the port computes LPIPS(alex) only"
+    if net_name not in _LPIPS_WARNED:
+        _LPIPS_WARNED.add(net_name)
+        logging.getLogger("fgs").warning(
+            f"LPIPS({net_name}) unavailable, omitting the metric: {why}")
+    return None
 
 
 def to8b(x: np.ndarray) -> np.ndarray:

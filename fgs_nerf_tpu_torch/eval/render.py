@@ -6,8 +6,9 @@ ray) and rendered by the lattice engine, whatever engine the stage
 trained with (the sorted engine is a training path); each image gets
 PSNR with foreground / background splits and SSIM, and, with a
 ``savedir``, the image, error, normal, depth and background dumps as
-PNG files (``eval/image_io.py``).  LPIPS is not ported
-(``eval_lpips=True`` raises).
+PNG files (``eval/image_io.py``); ``eval_lpips=True`` adds LPIPS(alex)
+(and LPIPS(vgg) where available: never in the port) computed on the
+parameters' device (``eval/metrics.py:rgb_lpips``).
 """
 from __future__ import annotations
 
@@ -122,12 +123,9 @@ def render_viewpoints(render_chunk, params, buffers, poses, hw, ks, conv: Dict,
                       eval_lpips=False, logger=None, step: int = 0
                       ) -> Dict[str, list]:
     """Render and score every pose (`eval/render.py:104-193`)."""
-    if eval_lpips:
-        raise NotImplementedError(
-            "LPIPS is not ported: it needs pretrained network weights")
     log = logger or logging.getLogger("fgs")
     stats = {"psnr": [], "fore_psnr": [], "bg_psnr": [], "ssim": [],
-             "rgbs": []}
+             "lpips_alex": [], "lpips_vgg": [], "rgbs": []}
     if savedir:
         os.makedirs(savedir, exist_ok=True)
     for i, c2w in enumerate(poses):
@@ -152,6 +150,14 @@ def render_viewpoints(render_chunk, params, buffers, poses, hw, ks, conv: Dict,
             stats["bg_psnr"].append(back)
             if eval_ssim:
                 stats["ssim"].append(metrics_lib.rgb_ssim(rgb, gt, max_val=1))
+            if eval_lpips:
+                dev = params["sdf"].device
+                la = metrics_lib.rgb_lpips(gt, rgb, "alex", device=dev)
+                lv = metrics_lib.rgb_lpips(gt, rgb, "vgg", device=dev)
+                if la is not None:
+                    stats["lpips_alex"].append(la)
+                if lv is not None:
+                    stats["lpips_vgg"].append(lv)
             log.info(f"view {i}: psnr {p:.2f} fore {fore:.2f} bg {back:.2f}")
         if savedir:
             _save_view(savedir, f"{step}_" if step else "", i, res, rgb, gt)

@@ -3,10 +3,12 @@
 Replaces ``fgs_nerf_tpu/ops/pallas/fused_mlp_cm.py:587``
 (``fused_shade_cm_fwd_pallas``) and ``:620`` (``fused_shade_cm_bwd_pallas``);
 the CUDA source is ``csrc/fused_shade_cm.cu`` (design and bound in its
-header: persistent blocks with the bf16 weights and a 64-sample tile of
-encodings and hiddens in shared memory, deterministic per-block dW/db
-partials; operations-bound, >= 0.26 ms forward and >= 0.78 ms backward on
-an H100 at the coarse bench shape).
+header: bf16 tensor-core products (mma.sync) over 64-sample tiles in
+persistent blocks that keep the bf16 weights in shared memory; the
+backward writes each tile's bf16 X, H1, dz1, dz0 to a scratch buffer and
+a split-K kernel forms dW0/dW1 from it, each block writing its slice
+once, summed in block order; operations-bound, >= 0.30 ms forward and
+>= 0.89 ms backward on an H100 at the coarse bench shape, padded).
 
 The plain twins are the port of ``fused_shade_cm_reference``
 (``fused_mlp_cm.py:562-580``) and of the TPU backward kernel's
@@ -27,7 +29,7 @@ KERNEL = CudaKernel(
     "fgs_nerf_tpu/ops/pallas/fused_mlp_cm.py:587 and :620",
     {
         "fused_shade_fwd": (P,) * 12 + (I64,) + (I32,) * 9 + (P,),
-        "fused_shade_bwd": (P,) * 19 + (I64,) + (I32,) * 9 + (P,),
+        "fused_shade_bwd": (P,) * 20 + (I64,) + (I32,) * 9 + (P,),
     },
 )
 
@@ -35,6 +37,14 @@ KERNEL = CudaKernel(
 # also rejects any other width
 KERNEL_HIDDENS = (128, 192)
 OUT8 = 8
+TILE = 64  # samples per tile of the CUDA kernels
+
+
+def bwd_scratch_elems(m: int, cin8: int, hid: int) -> int:
+    """bf16 values of B4's scratch: X (width cin8 rounded up to 64), H1,
+    dz1 and dz0 for ``m`` samples rounded up to a whole tile."""
+    mp = -(-m // TILE) * TILE
+    return mp * (-(-cin8 // 64) * 64 + 3 * hid)
 
 
 def pad8(r: int) -> int:
@@ -222,7 +232,7 @@ def _kernel_operands(k0, xyz, refl, normal, vd, weights, biases, pos_pe,
     w16 = [w.to(torch.bfloat16).contiguous() for w in wps]
     b32 = [b.to(torch.float32).contiguous() for b in bps]
     nblk = torch.cuda.get_device_properties(k0.device).multi_processor_count
-    nblk = max(1, min(nblk, (m + 63) // 64))
+    nblk = max(1, min(nblk, -(-m // TILE)))
     scal = (m, k0.shape[0], pos_pe, ref_pe, view_pe, int(vd is not None),
             cin8, hid, d_out, nblk)
     ptrs = [t.data_ptr() for t in (k0, xyz, refl, normal)]
@@ -265,14 +275,16 @@ def fused_shade_cm_bwd(k0, xyz, refl, normal, vd, weights, biases, g,
     d_ins = [torch.empty_like(t) for t in (k0, xyz, refl, normal)]
     d_vd = torch.empty_like(vd) if vd is not None else None
     n_part = cin8 * hid + hid * hid + hid * OUT8 + 2 * hid + OUT8
+    scratch = torch.empty((bwd_scratch_elems(m, cin8, hid),),
+                          dtype=torch.bfloat16, device=dev)
     part = torch.zeros((nblk, n_part), dtype=torch.float32, device=dev)
     dwb = torch.empty((n_part,), dtype=torch.float32, device=dev)
     KERNEL.call(
         "fused_shade_bwd", *ptrs, g.data_ptr(),
         *[t.data_ptr() for t in d_ins],
-        d_vd.data_ptr() if d_vd is not None else None,
+        d_vd.data_ptr() if d_vd is not None else None, scratch.data_ptr(),
         part.data_ptr(), dwb.data_ptr(), *scal, stream_ptr(dev))
-    del keep
+    del keep, scratch
     sizes = [cin8 * hid, hid * hid, hid * OUT8, hid, hid, OUT8]
     p0, p1, p2, q0, q1, q2 = torch.split(dwb, sizes)
     dws, dbs = _unpad_grads(

@@ -169,10 +169,6 @@ def test_render_overflow_and_stats(renders):
 
 
 def test_render_viewpoints_without_lpips(renders):
-    with pytest.raises(NotImplementedError, match="LPIPS"):
-        render_t.render_viewpoints(renders["fn_t"], renders["pt"], {},
-                                   [renders["pose"]], [(H, W)], [renders["k"]],
-                                   CONV, S_VAL, eval_lpips=True)
     out = render_t.render_viewpoints(renders["fn_t"], renders["pt"], {},
                                      [renders["pose"]], [(H, W)],
                                      [renders["k"]], CONV, S_VAL)

@@ -42,6 +42,7 @@ def test_port_imports_no_jax():
                  "fgs_nerf_tpu_torch.data.synthetic",
                  "fgs_nerf_tpu_torch.eval.metrics",
                  "fgs_nerf_tpu_torch.eval.render",
+                 "fgs_nerf_tpu_torch.eval.lpips_native",
                  "fgs_nerf_tpu_torch.convert",
                  "fgs_nerf_tpu_torch.config.base",
                  "fgs_nerf_tpu_torch.config.scenes",

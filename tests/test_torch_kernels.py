@@ -143,27 +143,35 @@ def test_b1_b2_match_plain(cuda, case, c):
     _check_b2(cuda, np.minimum(keys, r - 2), w8, g, r)
 
 
+@pytest.mark.parametrize("m", [5000, 80 * FS.TILE, 37])
 @pytest.mark.parametrize("hid", FS.KERNEL_HIDDENS)
 @pytest.mark.parametrize("use_vd", [True, False])
-def test_b3_b4_match_plain(cuda, use_vd, hid):
+def test_b3_b4_match_plain(cuda, use_vd, hid, m):
+    """The coarse bench layout (k0 12, pe 5/5/1, viewdir on: cin8 128) and
+    one without viewdir, at M off a multiple of the sample tile, one
+    whole number of tiles, and less than one tile."""
     rng = np.random.default_rng(6)
-    m = 5000
 
     def t(*shape, scale=1.0):
         return torch.from_numpy(
             (rng.normal(size=shape) * scale).astype(np.float32)).to(cuda)
 
     ins = [t(12, m), t(3, m), t(3, m), t(3, m), t(3, m) if use_vd else None]
-    cin = sum(FS.shade_layout(12, *PE, use_vd))
-    dims = (cin, hid, hid, 3)
+    rows = FS.shade_layout(12, *PE, use_vd)
+    assert FS.pad_plan(rows)[1] == (128 if use_vd else 104)
+    dims = (sum(rows), hid, hid, 3)
     ws = [t(i, o, scale=1 / np.sqrt(i)) for i, o in zip(dims[:-1], dims[1:])]
     bs = [t(o, scale=0.1) for o in dims[1:]]
     g = t(3, m)
+    n_fwd = FS.KERNEL.launches["fused_shade_fwd"]
+    n_bwd = FS.KERNEL.launches["fused_shade_bwd"]
     got = FS.fused_shade_cm_fwd(*ins, ws, bs, *PE)
+    assert FS.KERNEL.launches["fused_shade_fwd"] == n_fwd + 1
     err = (got - FS.fused_shade_cm_fwd_plain(*ins, ws, bs, *PE)).abs()
     assert float(err.max()) < 1e-2
     assert float((err > 1e-5).float().mean()) < 0.01
     d_k, dws_k, dbs_k = FS.fused_shade_cm_bwd(*ins, ws, bs, g, *PE)
+    assert FS.KERNEL.launches["fused_shade_bwd"] == n_bwd + 1
     d_p, dws_p, dbs_p = FS.fused_shade_cm_bwd_plain(*ins, ws, bs, g, *PE)
     for a, b in zip(list(d_k) + dws_k + dbs_k, list(d_p) + dws_p + dbs_p):
         if b is None:

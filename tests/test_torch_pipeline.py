@@ -250,8 +250,8 @@ def test_geometry_stage_matches_jax(tmp_path, monkeypatch):
         assert err < 2e-2, (name, err)
 
 
-def _cli(*args, cwd=REPO):
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+def _cli(*args, cwd=REPO, env_extra=None):
+    env = dict(os.environ, PYTHONPATH=str(REPO), **(env_extra or {}))
     return subprocess.run(
         [sys.executable, "-m", "fgs_nerf_tpu_torch.run", *args], cwd=cwd,
         env=env, capture_output=True, text=True, timeout=600)
@@ -265,6 +265,19 @@ def test_cli_eval_mode(trained, tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     assert "Testing psnr" in out.stderr
     assert (trained["out"] / "meshes" / "eval.ply").is_file()
+
+
+def test_cli_eval_mode_with_lpips(trained, tmp_path):
+    """``--eval_lpips 1`` runs LPIPS(alex) on the test view (40 x 40, on
+    the seed-0 fallback weights, which warn once) and exits cleanly."""
+    env_extra = {"FGS_LPIPS_WEIGHTS": "", "FGS_LPIPS_FALLBACK": "1"}
+    out = _cli("--mode", "eval", "--config", str(trained["cfg_path"]),
+               "--expname", "run", "--output_dir", str(trained["root"]),
+               "--device", "cpu", "--mesh_resolution", "24", "--eval_ssim", "0",
+               "--eval_lpips", "1", cwd=tmp_path, env_extra=env_extra)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "RANDOM-FEATURE fallback" in out.stderr
+    assert "Testing psnr" in out.stderr
 
 
 def test_cli_bad_config_lists_builtins(tmp_path):
