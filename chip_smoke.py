@@ -37,7 +37,9 @@ shade_k 128 -> 1,048,576 pass-2 samples, rgbnet 106 -> 256 x 4, refnet
 5. Fine kernel checks: one fine step with every kernel call recorded (B1
    and B2 in both passes, B5 and B6 in the z/y and the x tap call); each
    call's kernel is held against its twin, timed, and bounded.  Bytes
-   of a sparse serve count the pack columns its rows touch.
+   of a sparse serve count the pack columns its rows touch and, beside
+   that bound, the 32-byte sectors of each pack row those columns lie in
+   (device memory moves whole sectors); B6 also times its own sort.
 6. Fine main path: zero the counts, 2 warm-up and 4 timed steps; the
    loss must be finite and fall, and B1, B2, B5 and B6 must each have
    launched twice per step.  Profile two steps.
@@ -279,8 +281,8 @@ def _b9_readings(outs, ref):
 _BUCKETS = (  # kernel-name fragments -> bucket, first match wins
     ("accumulate B7", ("rowmajor_",)),
     ("serve B5", ("tap_window_serve",)),
-    ("accumulate B6", ("tap_run_starts", "tap_chunk_sums",
-                       "tap_dense_accumulate")),
+    ("accumulate B6", ("tap_tile_accumulate", "tap_block_sums",
+                       "tap_run_totals")),
     ("serve B1", ("window_gather_cm",)),
     ("accumulate B2", ("cm_tile_accumulate", "cm_block_sums",
                        "cm_run_totals")),
@@ -411,27 +413,41 @@ def _step_vs_plain(torch, loss_and_grads, step, state, buffers, batch, s_val,
     return report
 
 
-def _touched_bytes(torch, cols, n_rows_pack, rows_per_col):
-    """f32 bytes of the pack columns ``cols`` (any shape) reach, each once."""
+def _touched(torch, cols, pack):
+    """(f32 bytes of the pack columns ``cols`` (any shape) reach, each
+    once; bytes of the distinct 32-byte sectors those columns lie in, in
+    each row of the contiguous ``pack``: device memory moves whole
+    sectors)."""
     c = cols.reshape(-1)
-    c = torch.unique(c[(c >= 0) & (c < n_rows_pack)])
-    return c.numel() * rows_per_col * 4
+    c = torch.unique(c[(c >= 0) & (c < pack.shape[1])])
+    n_rows, rp = pack.shape
+    # float offset of each pack row within its sector, by row
+    offsets = [(pack.data_ptr() // 4 + k * rp) % 8 for k in range(n_rows)]
+    sectors = sum(offsets.count(o) * torch.unique((c + o) // 8).numel()
+                  for o in set(offsets))
+    return c.numel() * n_rows * 4, sectors * 32
 
 
 def _check_serve(torch, name, fn, plain, args, touched, n_flops, path):
     """A serve kernel (B1, B5): bit-equal to its twin; timed; bound by the
-    bytes its call must move (the touched pack columns, inputs, output)."""
+    bytes its call must move (the touched pack columns, inputs, output)
+    and, beside it, by the same with the touched pack columns counted in
+    whole 32-byte sectors."""
     got = fn(*args)
     want = plain(*args)
     err = float((got - want).abs().max())
     _check(err == 0.0, f"{name} ({path}) differs from its plain twin: {err}")
-    nb = touched + _nbytes(*args[1:], got)
-    bound = _bound(nb, n_flops, PEAK_F32_FLOPS)
-    return dict(path=path, max_abs_err=err, m=args[1].numel(),
-                ms=_time_ms(lambda: fn(*args), 5, torch),
+    cols, sectors = touched
+    rest = _nbytes(*args[1:], got)
+    bound = _bound(cols + rest, n_flops, PEAK_F32_FLOPS)
+    sector_bound = _bound(sectors + rest, n_flops, PEAK_F32_FLOPS)[0]
+    ms = _time_ms(lambda: fn(*args), 5, torch)
+    return dict(path=path, max_abs_err=err, m=args[1].numel(), ms=ms,
                 plain_ms=_time_ms(lambda: plain(*args), 2, torch),
                 bound_ms=bound[0], bound_by=bound[1], library_ms=None,
-                touched_mb=touched / 1e6,
+                touched_mb=cols / 1e6, sector_mb=sectors / 1e6,
+                sector_bound_ms=sector_bound,
+                sector_bound_share=sector_bound / ms,
                 whole_pack_bound_ms=_nbytes(args[0]) / PEAK_BYTES_PER_S * 1e3)
 
 
@@ -500,6 +516,10 @@ def _ptxas(kernel, fragments):
             out[cur]["static_smem_bytes"] = int(m.group(1)) if m else 0
     return out
 
+
+# B6's kernels: fragments of their mangled names
+_TAP_ACCUMULATE_ENTRIES = ("tap_tile_accumulate", "tap_block_sums",
+                           "tap_run_totals")
 
 # B3 / B4 call site -> fragments of its kernels' mangled names
 _SHADE_ENTRIES = {"fused_shade_cm_fwd": ("fused_shade_fwd",),
@@ -643,16 +663,14 @@ def _check_call(torch, name, args, path):
         return _check_shade_bwd(torch, args, path)
     if name == "window_gather_cm":
         pack, rows, w8 = args
-        touched = _touched_bytes(torch, torch.stack([rows, rows + 1]),
-                                 pack.shape[1], pack.shape[0])
+        touched = _touched(torch, torch.stack([rows, rows + 1]), pack)
         return _check_serve(torch, name, B1.window_gather_cm,
                             B1.window_gather_cm_plain, args, touched,
                             16 * (pack.shape[0] // 4) * rows.numel(), path)
     if name == "tap_window_serve_cm":
         pack, rows, delta, w8t = args
         cols = rows[None, :] + delta
-        touched = _touched_bytes(torch, torch.stack([cols, cols + 1]),
-                                 pack.shape[1], 4)
+        touched = _touched(torch, torch.stack([cols, cols + 1]), pack)
         return _check_serve(torch, name, B56.tap_window_serve_cm,
                             B56.tap_window_serve_cm_plain, args, touched,
                             16 * delta.numel(), path)
@@ -670,13 +688,33 @@ def _check_call(torch, name, args, path):
             16 * g.shape[0] * rows.numel(), path)
     rows, delta, w8t, g, n_rows = args
     idx, upd = B56.tap_updates(rows, delta, w8t, g)
-    return _check_accumulate(
+    keys = (rows[None, :] + delta).reshape(-1)
+    out = _check_accumulate(
         torch, name, B56.tap_dense_accumulate_cm,
-        B56.tap_dense_accumulate_cm_plain, args,
-        (rows[None, :] + delta).reshape(-1),
+        B56.tap_dense_accumulate_cm_plain, args, keys,
         lambda: torch.zeros((4, n_rows), device=g.device).index_add_(
             1, idx, upd),
         16 * delta.numel(), path)
+    del idx, upd
+    # the wrapper's own sort (keys formed and sorted), part of ``ms``
+    out["sort_ms"] = _time_ms(
+        lambda: torch.sort((rows[None, :] + delta).reshape(-1), stable=True),
+        3, torch)
+    out["smem_bytes"] = _tap_smem(keys.numel(), n_rows)
+    return out
+
+
+def _tap_smem(n, n_rows):
+    """Dynamic shared memory per block of B6's tile kernel for ``n``
+    deposits over ``n_rows`` rows (the launcher's own formula)."""
+    import ctypes
+
+    from fgs_nerf_tpu_torch.ops.cuda import tap_serve_cm as B56
+
+    f = B56.KERNEL.lib().tap_dense_accumulate_smem_bytes
+    f.argtypes = [ctypes.c_longlong, ctypes.c_longlong]
+    f.restype = ctypes.c_longlong
+    return f(n, n_rows)
 
 
 def _fine_phases(torch, np, card, dev, batch, n_rand):
@@ -1491,21 +1529,8 @@ def main():
     results = {}
 
     # B1: serve
-    pack, rows, w8 = captured["b1"]
-    got = B1.window_gather_cm(pack, rows, w8)
-    want = B1.window_gather_cm_plain(pack, rows, w8)
-    err = float((got - want).abs().max())
-    _check(err == 0.0, f"B1 differs from its plain twin: {err}")
-    c = pack.shape[0] // 4
-    bound = _bound(_nbytes(pack, rows, w8, got), 16 * c * rows.numel(),
-                   PEAK_F32_FLOPS)
-    results["window_gather_cm"] = dict(
-        path="coarse", max_abs_err=err,
-        ms=_time_ms(lambda: B1.window_gather_cm(pack, rows, w8), 10, torch),
-        plain_ms=_time_ms(lambda: B1.window_gather_cm_plain(pack, rows, w8), 5,
-                          torch),
-        bound_ms=bound[0], bound_by=bound[1], library_ms=None)
-    del got, want
+    results["window_gather_cm"] = _check_call(torch, "window_gather_cm",
+                                              captured["b1"], "coarse")
 
     # B2: dense accumulate
     rows_c, w8_2, g2, n_rows = captured["b2"]
@@ -1648,6 +1673,8 @@ def main():
             **({"matmul_chain_ms": main["matmul_chain_ms"],
                 "ptxas": _ptxas(kern, _SHADE_ENTRIES[name])}
                if kern is FS.KERNEL else {}),
+            **({"ptxas": _ptxas(kern, _TAP_ACCUMULATE_ENTRIES)}
+               if name == "tap_dense_accumulate_cm" else {}),
             "launches_by_path": by_path,
             "launches_per_step": {
                 "coarse": by_path["coarse"] / (N_WARMUP + N_STEPS),

@@ -5,8 +5,12 @@ B5 replaces ``fgs_nerf_tpu/ops/pallas/tap_serve_cm.py:158``
 (``tap_dense_accumulate_cm_pallas``); both live in
 ``csrc/tap_serve_cm.cu`` (designs and bounds in its header: B5 gathers
 directly, one thread per (tap, sample); B6 sorts the deposit keys with
-``torch.sort`` and sums each output row's runs in a deterministic
-order, long runs through block sums, no atomics; both bytes-bound).
+``torch.sort`` and sums them in row tiles on ``csrc/sorted_runs.cuh``:
+a block per 1,024 output rows finds its deposits with two searches,
+stages their keys and products in shared memory, each product at its
+place in its row's order, and writes its rows with vector stores; long
+runs through deterministic block sums; no atomics and no per-row
+scratch; both bytes-bound).
 
 The plain twins port the JAX references ``tap_serve_cm.py:211-224`` and
 ``:430-442``.  B5's twin sums each (tap, d) group of 4 products with
@@ -28,11 +32,13 @@ KERNEL = CudaKernel(
     "fgs_nerf_tpu/ops/pallas/tap_serve_cm.py:158 and :358",
     {
         "tap_window_serve_cm": (P, P, P, P, P, I64, I32, I64, P),
-        "tap_dense_accumulate_cm": (P, P, P, P, P, P, P, I32, I64, I64, P),
+        "tap_dense_accumulate_cm": (P, P, P, P, P, P, I32, I64, I64, I64, P),
     },
 )
 
-CHUNK = 256  # deposits per block sum (csrc/tap_serve_cm.cu)
+CHUNK = 256  # deposits per block sum (csrc/sorted_runs.cuh)
+TILE_ROWS = 1024  # output rows of a B6 tile (csrc/tap_serve_cm.cu)
+STAGE_DEPOSITS = 1024  # the most deposits a B6 pass stages (the same)
 
 
 def tap_window_serve_cm_plain(pack: torch.Tensor, rows: torch.Tensor,
@@ -113,27 +119,29 @@ def tap_dense_accumulate_cm(rows: torch.Tensor, delta: torch.Tensor,
     Every deposit row ``rows + delta`` must lie in [0, n_rows - 2].  CPU
     tensors take the plain version; CUDA tensors sort the T * M deposit
     keys (``torch.sort``, stable) and launch B6 on the sorted keys and
-    their permutation."""
+    their permutation; the result is then a view of a [4, n_rows]
+    prefix of rows padded to a multiple of 4."""
     if not g.is_cuda:
         return tap_dense_accumulate_cm_plain(rows, delta, w8t, g, n_rows)
     t, m = g.shape
     if (g.dtype != torch.float32 or w8t.dtype != torch.float32
             or rows.dtype != torch.int32 or delta.dtype != torch.int32
             or rows.shape != (m,) or delta.shape != (t, m)
-            or w8t.shape != (8 * t, m) or t * m >= 2**31
+            or w8t.shape != (8 * t, m) or t * m >= 2**31 or n_rows < 2
             or not all(a.is_cuda and a.is_contiguous()
                        for a in (rows, delta, w8t, g))):
         raise ValueError("tap_dense_accumulate_cm: expects contiguous CUDA "
                          "int32 rows [M], int32 delta [T, M], f32 w8t "
-                         "[8T, M], f32 g [T, M]")
+                         "[8T, M], f32 g [T, M] with T * M < 2**31 and "
+                         "n_rows >= 2")
     keys_s, perm = torch.sort((rows[None, :] + delta).reshape(-1), stable=True)
-    perm = perm.to(torch.int32)
-    out = torch.empty((4, n_rows), dtype=torch.float32, device=g.device)
-    start = torch.empty((n_rows + 1,), dtype=torch.int32, device=g.device)
-    chunk_sums = torch.empty((8 * ((t * m) // CHUNK),), dtype=torch.float32,
-                             device=g.device)
+    # rows padded to a multiple of 4 floats: every 4-row group of every
+    # channel is one aligned float4 store
+    ld = (n_rows + 3) // 4 * 4
+    out = torch.empty((4, ld), dtype=torch.float32, device=g.device)
+    block_sums = torch.empty((max(1, 8 * ((t * m) // CHUNK)),),
+                             dtype=torch.float32, device=g.device)
     KERNEL.call("tap_dense_accumulate_cm", keys_s.data_ptr(), perm.data_ptr(),
-                w8t.data_ptr(), g.data_ptr(), start.data_ptr(),
-                chunk_sums.data_ptr(), out.data_ptr(), t, m, n_rows,
-                stream_ptr(g.device))
-    return out
+                w8t.data_ptr(), g.data_ptr(), block_sums.data_ptr(),
+                out.data_ptr(), t, m, n_rows, ld, stream_ptr(g.device))
+    return out[:, :n_rows]

@@ -12,9 +12,10 @@ of up to 512 deposits in the CPU twin's order and match it bit for bit
 there (longer runs go through block sums: reassociation, within 1e-4 of
 the largest value), while on the card the twins' ``index_add_`` adds in
 any order (a 500-sample run of one row reassociates to ~4e-5), 1e-4;
-B2 and B7 run on the edge streams of ``tests/test_torch_streams.py``
+B2, B6 and B7 run on the edge streams of ``tests/test_torch_streams.py``
 (tile boundaries, runs of 2 x CHUNK and one more, spans past the
-shared-memory stage, empty tiles, the first and last rows); B3/B4 share
+shared-memory stage, empty tiles, the first and last rows; B6 also a
+sentinel pile, at 8 and 16 taps); B3/B4 share
 every bf16 rounding with their twins but sum in another order, so a
 hidden value can land one bf16 ulp away (logits within 1e-2, at most
 1% past 1e-5; cotangents rel L2 1e-3); so do B8/B9, with the same
@@ -256,25 +257,39 @@ def test_b5_b6_match_plain(cuda):
     assert torch.equal(got, B56.tap_window_serve_cm_plain(pack, rows, delta, w8t))
     assert torch.equal(got.cpu(), B56.tap_window_serve_cm_plain(*cpu[:4]))
 
-    got = B56.tap_dense_accumulate_cm(rows, delta, w8t, g, rp)
-    torch.cuda.synchronize()
-    assert (B56.KERNEL.launches["tap_dense_accumulate_cm"]
-            == n0["tap_dense_accumulate_cm"] + 1)
-    want_cpu = B56.tap_dense_accumulate_cm_plain(*cpu[1:], rp)
-    # rows whose runs hold at most 2 x CHUNK deposits add in the CPU twin's
-    # order: bit for bit; the sentinel keys go through block sums
+    # the ~16,000-deposit sentinel runs go through block sums
     keys = (cpu[1][None, :] + cpu[2]).reshape(-1).numpy()
-    counts = np.bincount(keys, minlength=rp + 1)
-    long_ = counts[:rp] > 2 * B56.CHUNK
-    assert long_.any()
-    short = ~(long_ | np.concatenate([[False], long_[:-1]]))
+    assert (np.bincount(keys, minlength=rp + 1) > 2 * B56.CHUNK).any()
+    _check_b6(cuda, *cpu[1:], rp)
+
+
+def _check_b6(cuda, rows, delta, w8t, g, r):
+    """B6 on CPU tensors against its CPU twin (rows whose d = 0 and d = 1
+    halves hold at most 2 x CHUNK deposits each bit for bit, the rest
+    within 1e-4 of the largest value: long runs reassociate to ~2e-5) and
+    its card twin (``index_add_``: 1e-4), and on a repeat."""
+    dev = [a.to(cuda) for a in (rows, delta, w8t, g)]
+    n0 = B56.KERNEL.launches["tap_dense_accumulate_cm"]
+    got = B56.tap_dense_accumulate_cm(*dev, r)
+    torch.cuda.synchronize()
+    assert B56.KERNEL.launches["tap_dense_accumulate_cm"] == n0 + 1
+    assert got.shape == (4, r) and got.dtype == torch.float32
+    want_cpu = B56.tap_dense_accumulate_cm_plain(rows, delta, w8t, g, r)
+    keys = STREAMS.b6_keys(rows.numpy(), delta.numpy())
+    short = torch.from_numpy(STREAMS.b2_short_rows(keys, r))
     assert torch.equal(got.cpu()[:, short], want_cpu[:, short])
-    # the ~16,000-deposit sentinel runs reassociate to ~2e-5 relative
     scale = float(want_cpu.abs().max())
     assert float((got.cpu() - want_cpu).abs().max()) <= 1e-4 * scale
-    want = B56.tap_dense_accumulate_cm_plain(rows, delta, w8t, g, rp)
+    want = B56.tap_dense_accumulate_cm_plain(*dev, r)
     assert float((got - want).abs().max()) <= 1e-4 * scale
-    assert torch.equal(got, B56.tap_dense_accumulate_cm(rows, delta, w8t, g, rp))
+    assert torch.equal(got, B56.tap_dense_accumulate_cm(*dev, r))
+
+
+@pytest.mark.parametrize("taps", STREAMS.B6_TAPS)
+@pytest.mark.parametrize("case", STREAMS.B6_CASES)
+def test_b6_matches_plain(cuda, case, taps):
+    rows, delta, w8t, g, r = STREAMS.b6_stream(case, taps)
+    _check_b6(cuda, *(torch.from_numpy(a) for a in (rows, delta, w8t, g)), r)
 
 
 def test_fine_step_kernels_match_plain(cuda):

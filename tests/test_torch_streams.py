@@ -1,5 +1,6 @@
 """Sorted sample streams at the edges of the row-tile accumulates B2
-(``csrc/scatter_combine_cm.cu``) and B7 (``csrc/scatter_combine.cu``).
+(``csrc/scatter_combine_cm.cu``) and B7 (``csrc/scatter_combine.cu``),
+and tap-deposit streams at the edges of B6 (``csrc/tap_serve_cm.cu``).
 
 One JAX-free place for the streams: the card tests
 (``tests/test_torch_kernels.py``) hold the kernels against their plain
@@ -17,12 +18,22 @@ empty tiles in a row, the first and last rows (B2: row R - 2, whose dz = 1
 half lands in R - 1; B7: cap - 1), row spaces that are multiples of
 neither the tile nor 4, one sample, fewer samples than CHUNK, and a
 dense stream of short runs.
+
+B6 sorts the T * M deposit keys rows + delta_t and sums them in tiles of
+``TILE_ROWS`` output rows; row r takes key r's deposits (d = 0) and key
+r - 1's (d = 1).  Its streams carry: a key on the last row of a tile
+(its d = 1 half lands in the next tile), halves of exactly 2 x CHUNK and
+2 x CHUNK + 1 deposits and rows whose two halves total those, a tile
+span larger than the stage, hundreds of empty tiles, keys 0 and
+n_rows - 2, a sentinel pile of tens of thousands of deposits, and a
+dense stream; each for the x call's 8 taps and the z/y call's 16.
 """
 import numpy as np
 import pytest
 
 from fgs_nerf_tpu_torch.ops.cuda import scatter_combine as B7
 from fgs_nerf_tpu_torch.ops.cuda import scatter_combine_cm as B2
+from fgs_nerf_tpu_torch.ops.cuda import tap_serve_cm as B6
 
 CASES = ("tile_edge", "two_chunks", "over_stage", "empty_tiles", "edges",
          "one", "short", "dense")
@@ -36,6 +47,16 @@ assert B7.CHUNK == B2.CHUNK
 OVER_STAGE = B2.STAGE_BYTES // 4
 ROW_OVER_STAGE = B2.STAGE_BYTES // 8
 assert B7.STAGE_BYTES == B2.STAGE_BYTES
+B6_CASES = ("tile_edge", "two_chunks", "over_stage", "empty_tiles", "edges",
+            "sentinels", "dense")
+B6_TAPS = (8, 16)  # the fine stage's x and z/y tap calls
+assert B6.CHUNK == B2.CHUNK
+B6_STAGE = B6.STAGE_DEPOSITS  # the most deposits a B6 pass stages
+# every B6 stream: 300 tiles and 3 rows, 60,000 deposits (T * M for T = 8
+# and 16), the deposits its edges leave in a dense band from tile 20 on
+B6_ROWS = 300 * B6.TILE_ROWS + 3
+B6_DEPOSITS = 60000
+B6_BAND = 20 * B6.TILE_ROWS
 
 
 def b7_tile(c):
@@ -106,9 +127,74 @@ def b7_stream(case, c, seed=0):
     return rows.astype(np.int32), upd, cap
 
 
+def _b6_key_counts(case, rng):
+    """{key: run length} of the edges of the B6 stream ``case``."""
+    tile, last = B6.TILE_ROWS, B6_ROWS - 2  # key last: d = 1 lands in R - 1
+    if case == "tile_edge":
+        # the last key of a tile and the first of the next, short and long
+        out = {}
+        for k, n in enumerate((3, 700, 40, LONG + 1)):
+            out[(k + 1) * tile - 1] = n
+            out[(k + 1) * tile] = 3 + k
+        return out
+    if case == "two_chunks":
+        # halves of 2 x CHUNK and 2 x CHUNK + 1 deposits (row 4: both
+        # halves 2 x CHUNK; row 10: a d = 1 half of 2 x CHUNK + 1) and rows
+        # whose halves total 2 x CHUNK (41) and 2 x CHUNK + 1 (61)
+        return {3: LONG, 4: LONG, 9: LONG + 1, 10: LONG, 11: 1,
+                40: B6.CHUNK, 41: B6.CHUNK, 60: B6.CHUNK, 61: B6.CHUNK + 1}
+    if case == "over_stage":
+        # 50 keys in one tile, ~16,000 deposits: more than a stage holds
+        return {r: (400 if r % 2 else 420 + 7 * r) for r in range(8, 58)}
+    if case == "empty_tiles":
+        return {1: 3, 2: 1, last - 1: 2, last: 4}
+    if case == "edges":
+        return {0: 3, 1: 1, last // 2: 9, last - 1: 2, last: 10000}
+    if case == "sentinels":
+        # real deposits below the band, and the pile of masked samples on
+        # the three keys of the backward sentinel row (delta in -2..0)
+        real = rng.choice(B6_BAND - 3, size=400, replace=False)
+        out = {int(r): int(k) for r, k in zip(real, rng.integers(1, 6, 400))}
+        out.update({last - 2: 9000, last - 1: 24000, last: 7000})
+        return out
+    return {}  # dense: the band alone
+
+
+def b6_stream(case, taps, seed=0):
+    """(rows int32 [M], delta int32 [T, M], w8t f32 [8T, M], g f32 [T, M],
+    n_rows) with T * M = B6_DEPOSITS and n_rows = B6_ROWS (one shape per
+    tap count).  The deposit keys rows + delta_t take the run lengths of
+    ``case``'s edges and, for the deposits left, a dense band of runs of 0
+    to 3 from row B6_BAND on; they are spread over the (t, m) slots at
+    random (so runs mix taps) and the base rows are sorted."""
+    rng = np.random.default_rng(seed)
+    counts = _b6_key_counts(case, rng)
+    left = B6_DEPOSITS - sum(counts.values())
+    band = rng.integers(0, 4, size=B6_ROWS - B6_BAND)
+    for key in counts:  # keep the band 3 rows from every edge key
+        band[max(0, key - 2 - B6_BAND):max(0, key + 3 - B6_BAND)] = 0
+    n_band = np.minimum(band, np.maximum(0, left - np.cumsum(band) + band))
+    counts.update({B6_BAND + int(r): int(n_band[r])
+                   for r in np.flatnonzero(n_band)})
+    keys = _rows_of(counts)
+    m = keys.size // taps
+    keys = keys[rng.permutation(keys.size)].reshape(taps, m)
+    rows = np.sort(rng.integers(0, B6_ROWS - 1, size=m))
+    delta = keys - rows[None, :]
+    w8t = rng.uniform(size=(8 * taps, m)).astype(np.float32)
+    g = rng.normal(size=(taps, m)).astype(np.float32)
+    return rows.astype(np.int32), delta.astype(np.int32), w8t, g, B6_ROWS
+
+
+def b6_keys(rows, delta):
+    """The sorted deposit keys rows + delta_t of a B6 stream."""
+    return np.sort((rows[None, :].astype(np.int64) + delta).reshape(-1))
+
+
 def b2_short_rows(rows, n_rows):
     """Rows of [0, R) whose dz = 0 run and dz = 1 run (the row below's)
-    both have at most 2 x CHUNK samples: summed in sample order."""
+    both have at most 2 x CHUNK samples: summed in sample order.  The
+    same for B6 on its sorted deposit keys (d = 0 / d = 1 halves)."""
     counts = np.bincount(rows, minlength=n_rows)[:n_rows]
     long_ = counts > LONG
     return ~(long_ | np.concatenate([[False], long_[:-1]]))
@@ -183,3 +269,60 @@ def test_streams_reach_their_edges():
             np.bincount(b7_stream("two_chunks", c)[0]).tolist())
         assert b7_stream("one", c)[0].size == 1
         assert b7_stream("short", c)[0].size < B7.CHUNK
+
+
+@pytest.mark.parametrize("taps", B6_TAPS)
+@pytest.mark.parametrize("case", B6_CASES)
+def test_b6_streams_are_in_range(case, taps):
+    rows, delta, w8t, g, r = b6_stream(case, taps)
+    m = rows.size
+    assert rows.dtype == delta.dtype == np.int32 and np.all(np.diff(rows) >= 0)
+    assert delta.shape == (taps, m) and g.shape == (taps, m)
+    assert w8t.shape == (8 * taps, m)
+    keys = b6_keys(rows, delta)
+    assert keys.min() >= 0 and keys.max() <= r - 2
+    assert keys.size == B6_DEPOSITS and r == B6_ROWS
+    # the output rows are no multiple of 4: the padded row stride's path
+    assert r % 4 != 0
+
+
+@pytest.mark.parametrize("taps", B6_TAPS)
+def test_b6_streams_reach_their_edges(taps):
+    tile = B6.TILE_ROWS
+
+    def stream(case):
+        rows, delta, _, _, r = b6_stream(case, taps)
+        keys = b6_keys(rows, delta)
+        return keys, r, np.bincount(keys, minlength=r)
+
+    def tile_spans(keys, r):  # deposits of the keys [row0 - 1, row0 + tile)
+        return _tile_spans(keys, r, tile, 1)
+
+    keys, r, counts = stream("tile_edge")
+    ends = np.arange(1, 5) * tile - 1
+    # a key on a tile's last row whose d = 1 half lands in the next tile,
+    # with a short and a long run
+    assert counts[ends].max() > LONG and counts[ends].min() > 0
+    assert counts[ends + 1].min() > 0
+    keys, r, counts = stream("two_chunks")
+    halves = np.stack([counts[:r], np.concatenate([[0], counts[:r - 1]])])
+    assert {LONG, LONG + 1} <= set(counts.tolist())
+    both_short = halves.max(0) <= LONG
+    totals = set(halves.sum(0)[both_short].tolist())
+    assert {LONG, LONG + 1, 2 * LONG} <= totals
+    assert (halves[1] == LONG + 1).any()  # a long d = 1 half
+    keys, r, _ = stream("over_stage")
+    assert tile_spans(keys, r).max() > B6_STAGE
+    keys, r, _ = stream("empty_tiles")
+    empty = np.flatnonzero(tile_spans(keys, r) == 0)
+    stretches = np.split(empty, np.flatnonzero(np.diff(empty) != 1) + 1)
+    assert max(map(len, stretches)) >= 200  # in a row
+    keys, r, counts = stream("edges")
+    assert keys[0] == 0 and keys[-1] == r - 2
+    assert counts[r - 2] > B6_STAGE  # a row read from device memory
+    keys, r, counts = stream("sentinels")
+    assert np.sort(counts)[-3:].sum() >= 40000 and counts.max() > 20000
+    keys, r, counts = stream("dense")
+    band = counts[B6_BAND:keys.max() + 1]
+    assert keys.min() == B6_BAND and 1.2 < band.mean() < 1.8
+    assert band.max() == 3

@@ -17,8 +17,12 @@ Tolerances and why:
   ``jnp.sum`` over the 4 rows, the twin adds them in a fixed order).
 * grid VJP: 1e-5 relative (the accumulate adds the same terms in the
   same serial order, then the same 4-shift combine).
+* B6's twin on the edge streams of ``test_torch_streams.py``: 1e-6, as
+  the twin against the reference above (both scatter tap by tap, d by d,
+  serially in sample order).
 The CUDA kernels themselves are checked against these plain twins on the
-card by ``tests/test_torch_kernels.py`` and ``chip_smoke.py``.
+card by ``tests/test_torch_kernels.py`` (B6 on the same edge streams) and
+``chip_smoke.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -35,6 +39,7 @@ from fgs_nerf_tpu.ops.pallas.tap_serve_cm import (
 from fgs_nerf_tpu_torch.models import sdf_voxel as MT
 from fgs_nerf_tpu_torch.ops import sorted_cm as ST
 from fgs_nerf_tpu_torch.ops.cuda import tap_serve_cm as B
+from test_torch_streams import B6_CASES, B6_TAPS, b6_stream
 
 DISPLACE = (0.5, 1.0, 1.5, 2.0)
 SHAPE = (13, 12, 14)
@@ -164,6 +169,21 @@ def test_plain_twins_match_references(transpose):
         jnp.asarray(rows_b), dj, wj, jnp.asarray(g), cap))
     got = B.tap_dense_accumulate_cm(T(rows_b), T(delta), T(w8t), T(g), cap)
     assert got.shape == (4, cap)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+_accumulate_reference_jit = jax.jit(tap_dense_accumulate_cm_reference,
+                                    static_argnums=4)
+
+
+@pytest.mark.parametrize("taps", B6_TAPS)
+@pytest.mark.parametrize("case", B6_CASES)
+def test_accumulate_plain_matches_reference_on_edge_streams(case, taps):
+    rows, delta, w8t, g, r = b6_stream(case, taps)
+    want = np.asarray(_accumulate_reference_jit(
+        *map(jnp.asarray, (rows, delta, w8t, g)), r))
+    got = B.tap_dense_accumulate_cm(T(rows), T(delta), T(w8t), T(g), r)
+    assert got.shape == (4, r) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
 
 
