@@ -39,13 +39,16 @@ shade_k 128 -> 1,048,576 pass-2 samples, rgbnet 106 -> 256 x 4, refnet
    call's kernel is held against its twin, timed, and bounded.  Bytes
    of a sparse serve count the pack columns its rows touch and, beside
    that bound, the 32-byte sectors of each pack row those columns lie in
-   (device memory moves whole sectors); B6 also times its own sort.
+   (device memory moves whole sectors) and, as context, the 64-byte
+   segments; B1 calls report the share of their sample tiles that take
+   the staged branch and the stage's shared memory per block; B6 also
+   times its own sort.
 6. Fine main path: zero the counts, 2 warm-up and 4 timed steps; the
    loss must be finite and fall, and B1, B2, B5 and B6 must each have
    launched twice per step.  Profile two steps.
 7. Masked traffic: two fine steps behind a mask cache built from the
-   initial ball SDF band, with the B2 / B6 checks on that step's calls
-   (the sentinel runs are long there).
+   initial ball SDF band, with every kernel call of the first step (B1,
+   B2, B5, B6) checked as in phase 5 (the sentinel runs are long there).
 8. Fine kernel path against plain path, as phase 4.
 
 The lattice engine (``engine="lattice"``, the JAX package's default and
@@ -280,10 +283,10 @@ def _b9_readings(outs, ref):
 
 _BUCKETS = (  # kernel-name fragments -> bucket, first match wins
     ("accumulate B7", ("rowmajor_",)),
-    ("serve B5", ("tap_window_serve",)),
+    ("serve B5", ("tap_serve_samples",)),
     ("accumulate B6", ("tap_tile_accumulate", "tap_block_sums",
                        "tap_run_totals")),
-    ("serve B1", ("window_gather_cm",)),
+    ("serve B1", ("window_gather_tiles",)),
     ("accumulate B2", ("cm_tile_accumulate", "cm_block_sums",
                        "cm_run_totals")),
     ("shade B3", ("fused_shade_fwd",)),
@@ -520,6 +523,9 @@ def _ptxas(kernel, fragments):
 # B6's kernels: fragments of their mangled names
 _TAP_ACCUMULATE_ENTRIES = ("tap_tile_accumulate", "tap_block_sums",
                            "tap_run_totals")
+# the serves' kernels (B1: one per channel instance, B5: per tap count)
+_SERVE_ENTRIES = {"window_gather_cm": ("window_gather_tiles",),
+                  "tap_window_serve_cm": ("tap_serve_samples",)}
 
 # B3 / B4 call site -> fragments of its kernels' mangled names
 _SHADE_ENTRIES = {"fused_shade_cm_fwd": ("fused_shade_fwd",),
@@ -663,17 +669,31 @@ def _check_call(torch, name, args, path):
         return _check_shade_bwd(torch, args, path)
     if name == "window_gather_cm":
         pack, rows, w8 = args
-        touched = _touched(torch, torch.stack([rows, rows + 1]), pack)
-        return _check_serve(torch, name, B1.window_gather_cm,
-                            B1.window_gather_cm_plain, args, touched,
-                            16 * (pack.shape[0] // 4) * rows.numel(), path)
+        c = pack.shape[0] // 4
+        cols = torch.stack([rows, rows + 1])
+        out = _check_serve(torch, name, B1.window_gather_cm,
+                           B1.window_gather_cm_plain, args,
+                           _touched(torch, cols, pack),
+                           16 * c * rows.numel(), path)
+        # the tile design: which tiles take the staged branch, the stage
+        out["staged_share"] = float(
+            B1.staged_tiles(rows, c).double().mean())
+        out["smem_bytes"] = _b1_smem(c)
+        out["segment64_bound_ms"] = _segment64_bound(
+            torch, cols, pack, _nbytes(rows, w8) + 4 * c * rows.numel())
+        return out
     if name == "tap_window_serve_cm":
         pack, rows, delta, w8t = args
         cols = rows[None, :] + delta
-        touched = _touched(torch, torch.stack([cols, cols + 1]), pack)
-        return _check_serve(torch, name, B56.tap_window_serve_cm,
-                            B56.tap_window_serve_cm_plain, args, touched,
-                            16 * delta.numel(), path)
+        cols = torch.stack([cols, cols + 1])
+        out = _check_serve(torch, name, B56.tap_window_serve_cm,
+                           B56.tap_window_serve_cm_plain, args,
+                           _touched(torch, cols, pack), 16 * delta.numel(),
+                           path)
+        out["smem_bytes"] = 0  # no stage: its pack reads hit L1/L2
+        out["segment64_bound_ms"] = _segment64_bound(
+            torch, cols, pack, _nbytes(rows, delta, w8t) + 4 * delta.numel())
+        return out
     if name == "dense_accumulate_cm":
         rows, w8, g, n_rows = args
         upd0, upd1 = B2.dense_updates(w8, g)
@@ -702,6 +722,29 @@ def _check_call(torch, name, args, path):
         3, torch)
     out["smem_bytes"] = _tap_smem(keys.numel(), n_rows)
     return out
+
+
+def _segment64_bound(torch, cols, pack, rest):
+    """Context for a serve's sector bound: the same bytes (``rest``: all
+    but the pack) with the touched pack columns counted in whole 64-byte
+    segments of each pack row (the pack rows start on 64-byte boundaries:
+    a fresh allocation, rows of a multiple of 512 floats)."""
+    c = cols.reshape(-1)
+    c = torch.unique(c[(c >= 0) & (c < pack.shape[1])] // 16)
+    return (c.numel() * 64 * pack.shape[0] + rest) / PEAK_BYTES_PER_S * 1e3
+
+
+def _b1_smem(c):
+    """Dynamic shared memory per B1 block for C channels (the launcher's
+    own formula)."""
+    import ctypes
+
+    from fgs_nerf_tpu_torch.ops.cuda import window_gather_cm as B1
+
+    f = B1.KERNEL.lib().window_gather_cm_smem_bytes
+    f.argtypes = [ctypes.c_int]
+    f.restype = ctypes.c_longlong
+    return f(c)
 
 
 def _tap_smem(n, n_rows):
@@ -834,7 +877,7 @@ def _fine_phases(torch, np, card, dev, batch, n_rand):
     zero_counts()
     p_m, o_m = params0, init_state(params0)
     calls = {}
-    with record(("dense_accumulate_cm", "tap_dense_accumulate_cm"), calls):
+    with record(sites, calls):
         p_m, o_m, met1 = step(p_m, o_m, buffers, *batch, s_val, lrs, 1.0)
     torch.cuda.synchronize()
     t_start = time.perf_counter()
@@ -1675,6 +1718,8 @@ def main():
                if kern is FS.KERNEL else {}),
             **({"ptxas": _ptxas(kern, _TAP_ACCUMULATE_ENTRIES)}
                if name == "tap_dense_accumulate_cm" else {}),
+            **({"ptxas": _ptxas(kern, _SERVE_ENTRIES[name])}
+               if name in _SERVE_ENTRIES else {}),
             "launches_by_path": by_path,
             "launches_per_step": {
                 "coarse": by_path["coarse"] / (N_WARMUP + N_STEPS),

@@ -11,18 +11,28 @@
 //   out[t, m] = sum_d sum_k2 w8t[8t + 4d + k2, m] * pack[k2, rows[m] + delta[t, m] + d]
 //
 // The TPU kernel serves a widened VMEM window with one-hot MXU products
-// because the TPU has no vector gather.  Here one thread per (tap,
-// sample) reads its 8 pack values directly.  Threads run sample-minor,
-// so a warp reads neighbouring samples of one tap: rows, delta, w8t and
-// the output coalesce, and sorted rows keep the pack reads close.  The
-// sum runs in the plain twin's order with round-to-nearest multiplies and
-// adds (no FMA contraction): per d, ((p0 w0 + p1 w1) + p2 w2) + p3 w3, then
+// because the TPU has no vector gather.  Here a thread owns one sample
+// and serves all T taps in turn, four taps' loads in flight at once (T is
+// a template parameter for the fine stage's 16 z/y and 8 x taps); a block
+// holds 256 consecutive sorted samples.  B5 is a stream: delta, w8t (80%
+// of the bytes) and the output are read or written once, so a warp's
+// consecutive samples move them as whole 128-byte lines, past the caches
+// (__ldcs / __stcs), which keeps L1 and L2 for the pack.  Its 8 pack values
+// per tap are gathered from device memory: the tap columns of a warp lie
+// close together (sorted rows, deltas within tap_bounds' envelope) and hit
+// L1/L2, and the pack is ~4% of the bytes.  (A shared-memory copy of each
+// tile's pack window, as B1 stages, was no faster on the z/y call and
+// slower on the x call on an H100: the stage left fewer blocks an SM.  The
+// first design, a thread per (tap, sample) with a dependent rows -> delta
+// -> pack chain per thread, reached half the bound.)  The sum runs in the
+// plain twin's order with round-to-nearest multiplies and adds (no FMA
+// contraction): per d, ((p0 w0 + p1 w1) + p2 w2) + p3 w3, then
 // (0 + s_0) + s_1 — bit-equal to the twin.
 //
 // Bound of B5 on an H100: bytes.  rows, delta, w8t and the output once,
-// and the pack columns the taps touch once: at the fine bench shape
-// (T = 16, M = 1,048,576) that is ~0.7 GB without the pack, >= 0.2 ms at
-// 3.35 TB/s.
+// and the pack columns the taps touch once, in whole 32-byte sectors: at
+// the fine bench's z/y call (T = 16, M = 1,048,576) ~0.71 GB, >= 0.21 ms
+// at 3.35 TB/s.
 //
 // B6 replaces fgs_nerf_tpu/ops/pallas/tap_serve_cm.py:358
 // (tap_dense_accumulate_cm_pallas).  Same function as its reference
@@ -105,29 +115,50 @@
 // smaller stages with fewer registers (spills) were slower on an H100.
 #include "sorted_runs.cuh"
 
-__global__ void tap_window_serve_cm_kernel(
-    const float* __restrict__ pack, const int* __restrict__ rows,
-    const int* __restrict__ delta, const float* __restrict__ w8t,
-    float* __restrict__ out, long long rp, int T, long long M) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)T * M) return;
-  const long long t = idx / M;
-  const long long m = idx - t * M;
-  const long long r = (long long)rows[m] + delta[idx];
-  const float* w = w8t + 8 * t * M + m;
+#define B5_THREADS 256  // samples of a block, one a thread
+
+// One tap of one sample: its 8 weights at stride M from w (streamed past
+// the caches) and its 8 pack values at column col (L1/L2 gathers), summed
+// in the plain twin's order.
+__device__ __forceinline__ float tap_value(const float* __restrict__ pack,
+                                           long long rp, long long col,
+                                           const float* __restrict__ w,
+                                           long long M) {
+  float wk[8], p[8];  // [d][k2]
+#pragma unroll
+  for (int k = 0; k < 8; ++k) wk[k] = __ldcs(w + k * M);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) p[k] = __ldg(pack + (k & 3) * rp + col + (k >> 2));
   float acc = 0.0f;
 #pragma unroll
   for (int d = 0; d < 2; ++d) {
-    const float* col = pack + r + d;
-    float s = __fmul_rn(__ldg(col), __ldg(w + (4 * d) * M));
-    s = __fadd_rn(s, __fmul_rn(__ldg(col + rp), __ldg(w + (4 * d + 1) * M)));
-    s = __fadd_rn(s, __fmul_rn(__ldg(col + 2 * rp),
-                               __ldg(w + (4 * d + 2) * M)));
-    s = __fadd_rn(s, __fmul_rn(__ldg(col + 3 * rp),
-                               __ldg(w + (4 * d + 3) * M)));
+    float s = __fmul_rn(p[4 * d], wk[4 * d]);
+    s = __fadd_rn(s, __fmul_rn(p[4 * d + 1], wk[4 * d + 1]));
+    s = __fadd_rn(s, __fmul_rn(p[4 * d + 2], wk[4 * d + 2]));
+    s = __fadd_rn(s, __fmul_rn(p[4 * d + 3], wk[4 * d + 3]));
     acc = __fadd_rn(acc, s);
   }
-  out[idx] = acc;
+  return acc;
+}
+
+// T is a template parameter for the fine stage's two calls (16 z/y taps,
+// 8 x taps), 0 for any other count.
+template <int TT>
+__global__ void __launch_bounds__(B5_THREADS)
+tap_serve_samples(const float* __restrict__ pack, const int* __restrict__ rows,
+                  const int* __restrict__ delta, const float* __restrict__ w8t,
+                  float* __restrict__ out, long long rp, int t_rt,
+                  long long M) {
+  const int T = TT > 0 ? TT : t_rt;
+  const long long m = (long long)blockIdx.x * B5_THREADS + threadIdx.x;
+  if (m >= M) return;
+  const long long r = __ldg(rows + m);
+#pragma unroll 4
+  for (int t = 0; t < T; ++t) {
+    const long long col = r + __ldcs(delta + t * M + m);
+    __stcs(out + t * M + m,
+           tap_value(pack, rp, col, w8t + 8LL * t * M + m, M));
+  }
 }
 
 // Deposit s of the sorted stream: its product for output pair = 4d + k2,
@@ -404,19 +435,33 @@ tap_tile_accumulate(const int* __restrict__ keys,
   }
 }
 
+template <int TT>
+static cudaError_t launch_b5(const float* pack, const int* rows,
+                             const int* delta, const float* w8t, float* out,
+                             long long rp, int T, long long M,
+                             cudaStream_t st) {
+  tap_serve_samples<TT><<<(unsigned)((M + B5_THREADS - 1) / B5_THREADS),
+                          B5_THREADS, 0, st>>>(pack, rows, delta, w8t, out,
+                                               rp, T, M);
+  return cudaGetLastError();
+}
+
 extern "C" int tap_window_serve_cm(const void* pack, const void* rows,
                                    const void* delta, const void* w8t,
                                    void* out, long long rp, int T,
                                    long long M, void* stream) {
-  const long long n = (long long)T * M;
-  if (n > 0) {
-    const int threads = 256;
-    tap_window_serve_cm_kernel<<<(unsigned)((n + threads - 1) / threads),
-                                 threads, 0, (cudaStream_t)stream>>>(
-        (const float*)pack, (const int*)rows, (const int*)delta,
-        (const float*)w8t, (float*)out, rp, T, M);
+  if (T <= 0 || M <= 0) return (int)cudaGetLastError();
+  const float* p = (const float*)pack;
+  const int* r = (const int*)rows;
+  const int* d = (const int*)delta;
+  const float* w = (const float*)w8t;
+  float* o = (float*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (T) {
+    case 16: return (int)launch_b5<16>(p, r, d, w, o, rp, T, M, st);
+    case 8: return (int)launch_b5<8>(p, r, d, w, o, rp, T, M, st);
+    default: return (int)launch_b5<0>(p, r, d, w, o, rp, T, M, st);
   }
-  return (int)cudaGetLastError();
 }
 
 // The deposits a tile stages per pass for n deposits over R rows.

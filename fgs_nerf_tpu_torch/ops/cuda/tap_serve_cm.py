@@ -3,8 +3,9 @@
 B5 replaces ``fgs_nerf_tpu/ops/pallas/tap_serve_cm.py:158``
 (``tap_window_serve_cm_pallas``), B6 replaces ``:358``
 (``tap_dense_accumulate_cm_pallas``); both live in
-``csrc/tap_serve_cm.cu`` (designs and bounds in its header: B5 gathers
-directly, one thread per (tap, sample); B6 sorts the deposit keys with
+``csrc/tap_serve_cm.cu`` (designs and bounds in its header: B5 streams,
+one thread per sample serving all taps, its pack values gathered from
+L1/L2; B6 sorts the deposit keys with
 ``torch.sort`` and sums them in row tiles on ``csrc/sorted_runs.cuh``:
 a block per 1,024 output rows finds its deposits with two searches,
 stages their keys and products in shared memory, each product at its

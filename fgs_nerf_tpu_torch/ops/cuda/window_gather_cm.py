@@ -2,10 +2,14 @@
 
 Replaces ``fgs_nerf_tpu/ops/pallas/window_gather_cm.py:156``
 (``sorted_window_gather_cm_pallas``); the CUDA source is
-``csrc/window_gather_cm.cu`` (design and bound in its header: direct
-gathers, one thread per sample; bytes-bound, >= 0.20 ms on an H100 at
-the coarse bench shape).  The plain twin is the port of the JAX
-reference ``window_gather_cm.py:204-215``.
+``csrc/window_gather_cm.cu`` (design and bound in its header: tiles of
+``TILE`` sorted samples, each served from a shared-memory copy of its
+pack window when the window fits the stage, else by gathers from device
+memory; bytes-bound).  The plain twin is the port of the JAX reference
+``window_gather_cm.py:204-215``.
+
+``staged_tiles`` says from the rows alone which tiles take the staged
+branch, with the kernel's own constants.
 """
 from __future__ import annotations
 
@@ -18,6 +22,28 @@ KERNEL = CudaKernel(
     "fgs_nerf_tpu/ops/pallas/window_gather_cm.py:156",
     {"window_gather_cm": (P, P, P, P, I32, I64, I64, P)},
 )
+
+TILE = 256  # samples of a tile (csrc/window_gather_cm.cu)
+STAGE_FLOATS = 8192  # the stage, over the 4C pack rows (the same)
+
+
+def stage_cols(c: int) -> int:
+    """Pack columns the stage holds for C channels (``stage_cols``)."""
+    return STAGE_FLOATS // (4 * c) // 4 * 4
+
+
+def tile_windows(rows: torch.Tensor) -> torch.Tensor:
+    """Pack columns each tile of ``TILE`` sorted samples stages: its window
+    [rows[first], rows[last] + 1] widened to whole 16-byte chunks."""
+    first = torch.arange(0, rows.numel(), TILE, device=rows.device)
+    last = torch.clamp(first + TILE, max=rows.numel()) - 1
+    return (rows[last].long() + 1 | 3) + 1 - rows[first].long() // 4 * 4
+
+
+def staged_tiles(rows: torch.Tensor, c: int) -> torch.Tensor:
+    """Whether each tile of the sorted ``rows`` takes the staged branch
+    (its window fits the stage) on a pack of 16-byte aligned rows."""
+    return tile_windows(rows) <= stage_cols(c)
 
 
 def window_gather_cm_plain(pack: torch.Tensor, rows: torch.Tensor,

@@ -12,6 +12,10 @@ of up to 512 deposits in the CPU twin's order and match it bit for bit
 there (longer runs go through block sums: reassociation, within 1e-4 of
 the largest value), while on the card the twins' ``index_add_`` adds in
 any order (a 500-sample run of one row reassociates to ~4e-5), 1e-4;
+B1 and B5 also run on the serve edge streams of
+``tests/test_torch_streams.py`` (B1's staged and direct tiles at the
+stage's width, sentinel piles, ragged counts, the last pack columns; B5's
+deltas at both ends of its envelope);
 B2, B6 and B7 run on the edge streams of ``tests/test_torch_streams.py``
 (tile boundaries, runs of 2 x CHUNK and one more, spans past the
 shared-memory stage, empty tiles, the first and last rows; B6 also a
@@ -142,6 +146,39 @@ def test_b1_b2_match_plain(cuda, case, c):
     assert torch.equal(got, B1.window_gather_cm_plain(pack, keys_d, w8_d))
     # sentinels clamp to r - 2: a 3,000-sample run through block sums
     _check_b2(cuda, np.minimum(keys, r - 2), w8, g, r)
+
+
+@pytest.mark.parametrize("c", STREAMS.B1_CHANNELS)
+@pytest.mark.parametrize("case", STREAMS.SERVE_CASES)
+def test_b1_match_plain(cuda, case, c):
+    """B1 on its edge streams (staged and direct tiles, stage-width edges,
+    a sentinel pile, a ragged count, rows at Rp - 2): bit-equal to its twin
+    on the card and on the CPU copy, one launch."""
+    cpu = [torch.from_numpy(a) for a in STREAMS.b1_stream(case, c)]
+    pack, rows, w8 = (a.to(cuda) for a in cpu)
+    n0 = B1.KERNEL.launches["window_gather_cm"]
+    got = B1.window_gather_cm(pack, rows, w8)
+    torch.cuda.synchronize()
+    assert B1.KERNEL.launches["window_gather_cm"] == n0 + 1
+    assert torch.equal(got, B1.window_gather_cm_plain(pack, rows, w8))
+    assert torch.equal(got.cpu(), B1.window_gather_cm_plain(*cpu))
+
+
+@pytest.mark.parametrize("taps", (3, 8, 16))
+@pytest.mark.parametrize("case", STREAMS.SERVE_CASES)
+def test_b5_match_plain(cuda, case, taps):
+    """B5 on its edge streams (deltas at both ends of the envelope, y taps
+    of whole z strides, a sentinel pile, a ragged count, columns at
+    Rp - 2): bit-equal to its twin on the card and on the CPU copy, one
+    launch."""
+    cpu = [torch.from_numpy(a) for a in STREAMS.b5_stream(case, taps)[:4]]
+    pack, rows, delta, w8t = (a.to(cuda) for a in cpu)
+    n0 = B56.KERNEL.launches["tap_window_serve_cm"]
+    got = B56.tap_window_serve_cm(pack, rows, delta, w8t)
+    torch.cuda.synchronize()
+    assert B56.KERNEL.launches["tap_window_serve_cm"] == n0 + 1
+    assert torch.equal(got, B56.tap_window_serve_cm_plain(pack, rows, delta, w8t))
+    assert torch.equal(got.cpu(), B56.tap_window_serve_cm_plain(*cpu))
 
 
 @pytest.mark.parametrize("m", [5000, 80 * FS.TILE, 37])

@@ -10,7 +10,8 @@ Tolerance: float32 trilinear sums in the same order, 1e-6; the
 accumulate adds the same terms in the same order (serial scatters on
 both sides), 1e-6; on the edge streams of ``test_torch_streams.py``
 the accumulate twin equals the reference bit for bit (both scatter the
-dz = 0 updates, then the dz = 1 updates, serially in sample order).  The
+dz = 0 updates, then the dz = 1 updates, serially in sample order), and
+the serve twin is within 1e-6 of its reference on B1's edge streams.  The
 CUDA kernels themselves are checked against these plain twins on the
 card by ``tests/test_torch_kernels.py``, on the same edge streams.
 """
@@ -27,7 +28,9 @@ from fgs_nerf_tpu.ops.pallas.window_gather_cm import sorted_window_gather_cm_ref
 from fgs_nerf_tpu_torch.ops import sorted_cm as ST
 from fgs_nerf_tpu_torch.ops.cuda import scatter_combine_cm as B2
 from fgs_nerf_tpu_torch.ops.cuda import window_gather_cm as B1
-from test_torch_streams import B2_CHANNELS, CASES, b2_stream
+from test_torch_streams import (
+    B1_CHANNELS, B2_CHANNELS, CASES, SERVE_CASES, b1_stream, b2_stream,
+)
 
 
 def T(a):
@@ -102,6 +105,20 @@ def test_accumulate_plain_matches_reference_on_edge_streams(case, c):
     got = B2.dense_accumulate_cm(T(rows), T(w8), T(g), r)
     assert got.shape == (4 * c, r) and got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+_serve_reference_jit = jax.jit(sorted_window_gather_cm_reference)
+
+
+@pytest.mark.parametrize("c", B1_CHANNELS)
+@pytest.mark.parametrize("case", SERVE_CASES)
+def test_serve_plain_matches_reference_on_edge_streams(case, c):
+    pack, rows, w8 = b1_stream(case, c)
+    want = np.asarray(_serve_reference_jit(
+        *map(jnp.asarray, (pack, rows, w8))))
+    got = B1.window_gather_cm(T(pack), T(rows), T(w8))
+    assert got.shape == (c, rows.size) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("pack16", [True, False])

@@ -27,13 +27,31 @@ r - 1's (d = 1).  Its streams carry: a key on the last row of a tile
 span larger than the stage, hundreds of empty tiles, keys 0 and
 n_rows - 2, a sentinel pile of tens of thousands of deposits, and a
 dense stream; each for the x call's 8 taps and the z/y call's 16.
+
+The serves B1 (``csrc/window_gather_cm.cu``) and B5
+(``csrc/tap_serve_cm.cu``) read a pack at the sorted rows.  B1 serves
+tiles of ``TILE`` samples, each from a shared-memory copy of its window
+[rows[first], rows[last] + 1] (widened to 16-byte chunks) when that fits
+the stage, else from device memory; its streams carry dense tiles, tiles
+whose window is exactly the stage, one chunk wider, or exactly the
+stage once its ends are widened, sparse tiles, a sentinel pile on the
+pack's zero tail, a sample count that is a multiple of neither the tile
+nor 4, and rows at Rp - 2; for C = 1 (no unrolled instance), 10 and 16.
+B5 serves every tap of a sample in one thread; its streams carry the
+same rows and deltas at both ends of the tap envelope
+(``sorted_cm.tap_bounds``), the y taps' jumps of whole z strides among
+them, for the x call's 8 taps (envelope (4, 5)), the z/y call's 16 and
+3 taps (no unrolled instance).
 """
 import numpy as np
 import pytest
+import torch
 
+from fgs_nerf_tpu_torch.ops import sorted_cm as ST
 from fgs_nerf_tpu_torch.ops.cuda import scatter_combine as B7
 from fgs_nerf_tpu_torch.ops.cuda import scatter_combine_cm as B2
 from fgs_nerf_tpu_torch.ops.cuda import tap_serve_cm as B6
+from fgs_nerf_tpu_torch.ops.cuda import window_gather_cm as B1
 
 CASES = ("tile_edge", "two_chunks", "over_stage", "empty_tiles", "edges",
          "one", "short", "dense")
@@ -326,3 +344,190 @@ def test_b6_streams_reach_their_edges(taps):
     band = counts[B6_BAND:keys.max() + 1]
     assert keys.min() == B6_BAND and 1.2 < band.mean() < 1.8
     assert band.max() == 3
+
+
+# ---------------------------------------------------------------------------
+# The serves B1 and B5
+# ---------------------------------------------------------------------------
+
+SERVE_CASES = ("dense", "stage_edges", "sparse", "sentinels", "ragged",
+               "last_rows")
+B1_CHANNELS = (1, 10, 16)
+B1_RP = 40 * 512  # pack columns, a multiple of 512 as the port's packs
+B1_REAL = B1_RP - 512  # columns from here on are the pack's zero tail
+# stage_edges: (first, last) rows of tiles 0-3 relative to a 4-aligned
+# base, and whether the tile is staged: a window of exactly the stage, one
+# 16-byte chunk wider, the stage again once an unaligned first row is
+# widened down, and one chunk wider from an unaligned first row
+_EDGE_TILES = ((0, -2, True), (0, -1, False), (3, -2, True), (1, -1, False))
+
+
+def _sorted_between(rng, first, last, n):
+    """n sorted rows: first, n - 2 uniform in [first, last], last."""
+    mid = rng.integers(first, last + 1, size=n - 2)
+    return np.sort(np.concatenate([[first], mid, [last]]))
+
+
+def _serve_rows(case, cols, real, rng):
+    """Sorted int64 rows of a serve stream (the caller's sentinel row is
+    ``real``; last_rows reaches ``real + 510``), with B1's tile edges at a
+    stage of ``cols`` columns."""
+    tile = B1.TILE
+    if case == "dense":
+        # ~5 samples a row: every window well inside any stage
+        return np.sort(rng.integers(100, 100 + 400, size=8 * tile))
+    if case == "stage_edges":
+        parts = []
+        for k, (f, l, _) in enumerate(_EDGE_TILES):
+            base = 64 + k * (cols + 64)
+            parts.append(_sorted_between(rng, base + f, base + cols + l, tile))
+        base = 64 + 4 * (cols + 64)
+        parts.append(np.sort(rng.integers(base, base + 20, size=100)))
+        return np.concatenate(parts)
+    if case == "sparse":
+        return np.sort(rng.integers(0, real - 1, size=3 * tile))
+    if case == "sentinels":
+        # one dense tile of real rows, then 3.5 tiles on the sentinel row
+        dense = np.sort(rng.integers(real - 300, real - 1, size=tile))
+        return np.concatenate([dense, np.full(7 * tile // 2, real)])
+    if case == "ragged":
+        return np.sort(rng.integers(1000, 3000, size=5 * tile + 7))
+    # last_rows: rows up to Rp - 2, whose column + 1 is the last one
+    return np.concatenate([np.sort(rng.integers(real, real + 400, size=300)),
+                           np.full(300, real + 510)])
+
+
+def b1_stream(case, c, seed=0):
+    """(pack f32 [4C, B1_RP], zero from B1_REAL on; rows int32 [M] sorted
+    in [0, B1_RP - 2]; w8 f32 [8, M])."""
+    rng = np.random.default_rng(seed)
+    rows = _serve_rows(case, B1.stage_cols(c), B1_REAL, rng)
+    if case == "last_rows":
+        rows = np.minimum(rows, B1_RP - 2)
+    pack = rng.normal(size=(4 * c, B1_RP)).astype(np.float32)
+    pack[:, B1_REAL:] = 0.0
+    w8 = rng.uniform(size=(8, rows.size)).astype(np.float32)
+    return pack, rows.astype(np.int32), w8
+
+
+def b5_envelope(taps):
+    """(grid, maxneg, maxpos) of a tap call: the x call's (4, 5), else the
+    z/y envelope of a 20 x 21 x 22 grid (z stride 128)."""
+    grid = (20, 21, 22)
+    return (grid, 4, 5) if taps == 8 else (grid, *ST.tap_bounds(grid))
+
+
+def _tap_deltas(taps, m, maxneg, maxpos, zp, rng):
+    """[T, M] deltas in [-maxneg, maxpos]: z-like taps of a few rows and,
+    for the z/y envelope, y-like taps (odd t) of -2..1 whole z strides
+    plus a few rows; every 7th sample of every tap at -maxneg, the next
+    but two at maxpos, and (z/y) two more at -zp and +zp."""
+    delta = rng.integers(-min(maxneg, 3), min(maxpos, 3) + 1, size=(taps, m))
+    if maxneg > zp:
+        jumps = rng.integers(-2, 2, size=(taps, m)) * zp
+        delta = np.where(np.arange(taps)[:, None] % 2 == 1, delta + jumps,
+                         delta)
+    delta = np.clip(delta, -maxneg, maxpos)
+    delta[:, ::7] = -maxneg
+    delta[:, 3::7] = maxpos
+    if maxneg > zp:
+        delta[:, 5::7] = zp
+        delta[:, 6::7] = -zp
+    return delta
+
+
+def b5_stream(case, taps, seed=0):
+    """(pack f32 [4, Rp], rows int32 [M] sorted, delta int32 [T, M],
+    w8t f32 [8T, M], maxneg, maxpos) in the margined tap row space of
+    ``sorted_cm._tap_geometry``: real rows from ``margin`` on, the pack
+    zero outside them, the sentinel row past them; every rows + delta (+ 1)
+    inside the pack."""
+    rng = np.random.default_rng(seed)
+    grid, maxneg, maxpos = b5_envelope(taps)
+    r, margin, rp, sentinel = ST._tap_geometry(grid, maxneg, maxpos)
+    if case == "last_rows":  # the last real rows, then the sentinel row
+        rows = np.concatenate([np.sort(rng.integers(r - 400, r, size=300)),
+                               np.full(300, sentinel - margin)])
+    else:
+        rows = _serve_rows(case, B1.stage_cols(16), r - 2, rng)
+        rows = np.where(rows >= r - 2, sentinel - margin, rows)
+    rows = rows + margin
+    m = rows.size
+    delta = _tap_deltas(taps, m, maxneg, maxpos, ST.z_stride(grid[2]), rng)
+    if case == "last_rows":  # sentinel + maxpos = Rp - 2
+        delta[:, rows == sentinel] = maxpos
+    pack = np.zeros((4, rp), np.float32)
+    pack[:, margin:margin + r] = rng.normal(size=(4, r))
+    w8t = rng.uniform(size=(8 * taps, m)).astype(np.float32)
+    return (pack, rows.astype(np.int32), delta.astype(np.int32), w8t, maxneg,
+            maxpos)
+
+
+def b1_staged(rows, c):
+    """Whether each B1 tile of the stream takes the staged branch."""
+    return B1.staged_tiles(torch.from_numpy(rows), c).numpy()
+
+
+@pytest.mark.parametrize("c", B1_CHANNELS)
+@pytest.mark.parametrize("case", SERVE_CASES)
+def test_b1_streams_are_sorted_and_in_range(case, c):
+    pack, rows, w8 = b1_stream(case, c)
+    assert pack.shape == (4 * c, B1_RP) and not pack[:, B1_REAL:].any()
+    assert rows.dtype == np.int32 and np.all(np.diff(rows) >= 0)
+    assert rows.min() >= 0 and rows.max() <= B1_RP - 2
+    assert w8.shape == (8, rows.size)
+
+
+@pytest.mark.parametrize("c", B1_CHANNELS)
+def test_b1_streams_reach_their_branches(c):
+    tile, cols = B1.TILE, B1.stage_cols(c)
+    assert all(b1_staged(b1_stream("dense", c)[1], c))
+    rows = b1_stream("stage_edges", c)[1]
+    windows = B1.tile_windows(torch.from_numpy(rows)).numpy()
+    # tiles 0 and 2 exactly at the stage, 1 and 3 one 16-byte chunk over
+    assert windows[:4].tolist() == [cols, cols + 4, cols, cols + 4]
+    assert b1_staged(rows, c).tolist() == [t[2] for t in _EDGE_TILES] + [True]
+    # the raw span of tile 1 crosses the stage by one column
+    assert rows[2 * tile - 1] + 2 - rows[tile] == cols + 1
+    assert not any(b1_staged(b1_stream("sparse", c)[1], c))
+    rows = b1_stream("sentinels", c)[1]
+    assert (rows == B1_REAL).sum() == 7 * tile // 2
+    assert all(b1_staged(rows, c)[1:])
+    m = b1_stream("ragged", c)[1].size
+    assert m % tile and m % 4
+    rows = b1_stream("last_rows", c)[1]
+    assert rows.max() == B1_RP - 2 and (rows == B1_RP - 2).sum() >= tile
+
+
+@pytest.mark.parametrize("taps", (3, 8, 16))
+@pytest.mark.parametrize("case", SERVE_CASES)
+def test_b5_streams_are_sorted_and_in_range(case, taps):
+    pack, rows, delta, w8t, maxneg, maxpos = b5_stream(case, taps)
+    grid, _, _ = b5_envelope(taps)
+    r, margin, rp, sentinel = ST._tap_geometry(grid, maxneg, maxpos)
+    m = rows.size
+    assert pack.shape == (4, rp) and delta.shape == (taps, m)
+    assert w8t.shape == (8 * taps, m)
+    assert rows.dtype == delta.dtype == np.int32 and np.all(np.diff(rows) >= 0)
+    assert np.all((rows >= margin) & (rows < margin + r) | (rows == sentinel))
+    assert delta.min() >= -maxneg and delta.max() <= maxpos
+    cols = rows[None, :].astype(np.int64) + delta
+    assert cols.min() >= 0 and cols.max() + 1 <= rp - 1
+
+
+@pytest.mark.parametrize("taps", (3, 8, 16))
+def test_b5_streams_reach_their_edges(taps):
+    grid, maxneg, maxpos = b5_envelope(taps)
+    _, _, rp, sentinel = ST._tap_geometry(grid, maxneg, maxpos)
+    zp = ST.z_stride(grid[2])
+    _, rows, delta, _, _, _ = b5_stream("dense", taps)
+    # both ends of the envelope in every tap
+    assert (delta.min(1) == -maxneg).all() and (delta.max(1) == maxpos).all()
+    if taps != 8:  # y taps: whole z strides either way
+        assert {-2 * zp, -zp, zp}.issubset(set(np.unique(delta).tolist()))
+    rows = b5_stream("sentinels", taps)[1]
+    assert (rows == sentinel).sum() == 7 * B1.TILE // 2
+    m = b5_stream("ragged", taps)[1].size
+    assert m % 256 and m % 4
+    _, rows, delta, _, _, _ = b5_stream("last_rows", taps)
+    assert (rows[None, :] + delta).max() == rp - 2

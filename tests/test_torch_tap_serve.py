@@ -19,9 +19,11 @@ Tolerances and why:
   same serial order, then the same 4-shift combine).
 * B6's twin on the edge streams of ``test_torch_streams.py``: 1e-6, as
   the twin against the reference above (both scatter tap by tap, d by d,
-  serially in sample order).
+  serially in sample order); B5's twin on its edge streams (envelope
+  ends, sentinel piles, the last pack columns): 1e-6, as the forward.
 The CUDA kernels themselves are checked against these plain twins on the
-card by ``tests/test_torch_kernels.py`` (B6 on the same edge streams) and
+card by ``tests/test_torch_kernels.py`` (B5 and B6 on the same edge
+streams) and
 ``chip_smoke.py``.
 """
 import jax
@@ -39,7 +41,9 @@ from fgs_nerf_tpu.ops.pallas.tap_serve_cm import (
 from fgs_nerf_tpu_torch.models import sdf_voxel as MT
 from fgs_nerf_tpu_torch.ops import sorted_cm as ST
 from fgs_nerf_tpu_torch.ops.cuda import tap_serve_cm as B
-from test_torch_streams import B6_CASES, B6_TAPS, b6_stream
+from test_torch_streams import (
+    B6_CASES, B6_TAPS, SERVE_CASES, b5_stream, b6_stream,
+)
 
 DISPLACE = (0.5, 1.0, 1.5, 2.0)
 SHAPE = (13, 12, 14)
@@ -184,6 +188,20 @@ def test_accumulate_plain_matches_reference_on_edge_streams(case, taps):
         *map(jnp.asarray, (rows, delta, w8t, g)), r))
     got = B.tap_dense_accumulate_cm(T(rows), T(delta), T(w8t), T(g), r)
     assert got.shape == (4, r) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+_serve_reference_jit = jax.jit(tap_window_serve_cm_reference)
+
+
+@pytest.mark.parametrize("taps", (3, 8, 16))
+@pytest.mark.parametrize("case", SERVE_CASES)
+def test_serve_plain_matches_reference_on_edge_streams(case, taps):
+    pack, rows, delta, w8t, _, _ = b5_stream(case, taps)
+    want = np.asarray(_serve_reference_jit(
+        *map(jnp.asarray, (pack, rows, delta, w8t))))
+    got = B.tap_window_serve_cm(T(pack), T(rows), T(delta), T(w8t))
+    assert got.shape == delta.shape and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
 
 
