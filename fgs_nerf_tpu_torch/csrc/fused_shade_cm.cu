@@ -17,7 +17,9 @@
 // gradients sum the fp32 dz; input cotangents go back through the
 // sincos chain rule (_enc_bwd, fused_mlp_cm.py:449-459) with sinf/cosf.
 // Hidden width 192 (the coarse refnet) or 128 (the geometry-searching
-// refnet), one template instance each; cin8 <= 128 padded inputs.
+// refnet), one template instance each (B4's per-tile pass two: 2 or 3
+// dx column tiles a warp, by cin8); cin8 <= 144 padded inputs (the DTU
+// coarse head, viewbase_pe 3, has 144).
 //
 // Bound on an H100: operations (bf16 tensor cores, 989 TFLOP/s).  At the
 // coarse bench shape (M = 2,359,296, cin8 128, hidden 192, 8 padded
@@ -35,11 +37,18 @@
 //
 // - B3 (fused_shade_fwd_kernel): persistent blocks of 16 warps (one per
 //   SM) keep the padded bf16 weights in shared memory for their life
-//   (W0 128 x 192, W1 192 x 192, W2 192 x 8: 137 KB with the row pads)
-//   and walk 64-sample tiles.  The next tile's raw input rows are copied
-//   into shared memory (cp.async) while the current tile computes; its
-//   encodings are built with one (encoded row, sample) item per thread
-//   and step (uniform work, pad rows written as zeros in the same pass).
+//   (W0 128 x 192, W1 192 x 192, W2 192 x 8: 137 KB with the row pads;
+//   W0 144 x 192 at the DTU coarse layout, 143 KB) and walk 64-sample
+//   tiles.  The next tile's raw input rows are copied into shared memory
+//   (cp.async) while the current tile computes; its encodings are built
+//   with one (encoded row, sample) item per thread and step (uniform
+//   work, pad rows written as zeros in the same pass).  The table of
+//   what each encoded row reads and computes (EncTable) is built on the
+//   host and passed as a __grid_constant__ kernel parameter: its row
+//   index is uniform across a warp, so its reads are constant-bank
+//   broadcasts, and its 2,880 B stay out of shared memory (at cin8 144
+//   and width 192 B4's block needs all but 768 B of the 227 KB a block
+//   may hold).
 //   The layer products take the 64 samples as M: warp w owns the 32
 //   samples (w / 8) * 32 .. and the 8-wide column tiles w % 8 + 8j; bias
 //   + ReLU + bf16 rounding go from the accumulator fragments straight
@@ -48,7 +57,8 @@
 //   staged through shared memory and stored as rows of 64 consecutive
 //   samples.
 // - B4 is two kernels.  fused_shade_bwd_kernel (persistent, weights in
-//   shared memory and raw rows and cotangents prefetched as in B3)
+//   shared memory and raw rows prefetched as in B3; the next tile's
+//   cotangent rows go into one buffer once this tile's are read)
 //   recomputes a tile's hiddens, forms dz2 = bf16(g), and dz1 and dz0
 //   in registers from the dh fragments (dz = dh * (h > 0)), runs the dh
 //   and dx products on mma with the samples as M, and writes the input
@@ -103,7 +113,7 @@ typedef __nv_bfloat16 bf16;
 #define DW_NT 256    // threads per dW kernel block (8 warps)
 #define OUT8 8       // padded rows of the last layer
 #define SW2 24       // row stride of W2 and dz2 tiles: 8 values, 8 zeros, pad
-#define MAXROW 128   // padded encoded rows (cin8 <= 128)
+#define MAXROW 144   // padded encoded rows (cin8 <= 144)
 #define DW_ROWS 64   // weight rows per dW kernel block
 #define SA_DW 72     // row stride of the dW kernel's staged X / H1 chunk
 #define SMEM_MAX 232448
@@ -192,8 +202,8 @@ struct EncTable {
   float freq[MAXROW];
 };
 
-__device__ void enc_block(EncTable& T, int r, int o_id, int o_s, int o_c,
-                          int pe, int raw0) {
+static void enc_block(EncTable& T, int r, int o_id, int o_s, int o_c, int pe,
+                      int raw0) {
   if (r >= o_id && r < o_id + 3) {
     T.src[r] = raw0 + r - o_id;
     T.kind[r] = 0;
@@ -208,20 +218,22 @@ __device__ void enc_block(EncTable& T, int r, int o_id, int o_s, int o_c,
   }
 }
 
-// Fill the table (cin16 rows).  Ends with a barrier.
-__device__ void build_table(const ShadeIn& a, const Layout& L, int cin16,
-                            EncTable& T) {
+// The table of a call, on the host (every row; rows past cin8 are pad).
+static EncTable make_table(const ShadeIn& a) {
+  const Layout L = make_layout(a.k0_dim, a.pos_pe, a.ref_pe, a.view_pe,
+                               a.use_vd);
+  EncTable T;
   const int nraw = a.k0_dim + 9 + 3 * a.use_vd;
-  for (int q = threadIdx.x; q < nraw; q += NT) {
-    const float* p;
+  for (int q = 0; q < MAXROW; ++q) {
+    const float* p = nullptr;
     if (q < a.k0_dim) p = a.k0 + (long long)q * a.M;
     else if (q < a.k0_dim + 3) p = a.xyz + (long long)(q - a.k0_dim) * a.M;
     else if (q < a.k0_dim + 6) p = a.refl + (long long)(q - a.k0_dim - 3) * a.M;
     else if (q < a.k0_dim + 9) p = a.normal + (long long)(q - a.k0_dim - 6) * a.M;
-    else p = a.vd + (long long)(q - a.k0_dim - 9) * a.M;
+    else if (q < nraw) p = a.vd + (long long)(q - a.k0_dim - 9) * a.M;
     T.raw[q] = p;
   }
-  for (int r = threadIdx.x; r < cin16; r += NT) {
+  for (int r = 0; r < MAXROW; ++r) {
     T.src[r] = -1;
     T.kind[r] = 0;
     T.freq[r] = 1.0f;
@@ -232,28 +244,31 @@ __device__ void build_table(const ShadeIn& a, const Layout& L, int cin16,
     if (a.use_vd)
       enc_block(T, r, L.vd, L.vd_s, L.vd_c, a.view_pe, a.k0_dim + 9);
   }
-  __syncthreads();
+  return T;
+}
+
+// Start the copies of a tile's cotangent rows into G [OUT8][TS] (zeros
+// past d_out and M); one cp.async group.
+__device__ void prefetch_g(long long M, long long s0, const float* g,
+                           int d_out, float* G) {
+  for (int e = threadIdx.x; e < OUT8 * TS; e += NT) {
+    const int o = e >> 6;
+    const long long gs = s0 + (e & (TS - 1));
+    if (o < d_out && gs < M) cp_async4(G + e, g + (long long)o * M + gs);
+    else G[e] = 0.0f;
+  }
+  cp_async_commit();
 }
 
 // Start the copies of a tile's raw input rows into RB [nraw][TS] (zeros
-// past M) and, with G, of its cotangent rows into G [OUT8][TS] (zeros
-// past d_out); one cp.async group.
+// past M); one cp.async group.
 __device__ void prefetch_raw(const EncTable& T, int nraw, long long M,
-                             long long s0, float* RB, const float* g,
-                             int d_out, float* G) {
+                             long long s0, float* RB) {
   for (int e = threadIdx.x; e < nraw * TS; e += NT) {
     const int q = e >> 6;
     const long long gs = s0 + (e & (TS - 1));
     if (gs < M) cp_async4(RB + e, T.raw[q] + gs);
     else RB[e] = 0.0f;
-  }
-  if (G != nullptr) {
-    for (int e = threadIdx.x; e < OUT8 * TS; e += NT) {
-      const int o = e >> 6;
-      const long long gs = s0 + (e & (TS - 1));
-      if (o < d_out && gs < M) cp_async4(G + e, g + (long long)o * M + gs);
-      else G[e] = 0.0f;
-    }
   }
   cp_async_commit();
 }
@@ -413,15 +428,15 @@ __device__ __forceinline__ void store_tile(const bf16* S, int st, int cols,
 
 template <int HID>
 __global__ void __launch_bounds__(NT, 1)
-fused_shade_fwd_kernel(ShadeIn a, float* __restrict__ out, int d_out) {
+fused_shade_fwd_kernel(ShadeIn a, const __grid_constant__ EncTable T,
+                       float* __restrict__ out, int d_out) {
   constexpr int SH = HID + 8;
   constexpr int NTW = HID / 64;
   extern __shared__ __align__(16) unsigned char shade_smem[];
   const Layout L = make_layout(a.k0_dim, a.pos_pe, a.ref_pe, a.view_pe,
                                a.use_vd);
   const int cin16 = pad16(L.cin8), sx = cin16 + 8;
-  EncTable& T = *reinterpret_cast<EncTable*>(shade_smem);
-  bf16* W0 = reinterpret_cast<bf16*>(shade_smem + sizeof(EncTable));
+  bf16* W0 = reinterpret_cast<bf16*>(shade_smem);
   bf16* W1 = W0 + cin16 * SH;     // [HID][SH]
   bf16* W2 = W1 + HID * SH;       // [HID][SW2]
   bf16* X = W2 + HID * SW2;       // [TS][sx]
@@ -433,26 +448,24 @@ fused_shade_fwd_kernel(ShadeIn a, float* __restrict__ out, int d_out) {
   load_w(a.w0, L.cin8, cin16, HID, HID, W0, SH);
   load_w(a.w1, HID, HID, HID, HID, W1, SH);
   load_w(a.w2, HID, HID, OUT8, 16, W2, SW2);
-  build_table(a, L, cin16, T);  // barrier
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const long long ntiles = (a.M + TS - 1) / TS;
   int buf = 0;
   if (blockIdx.x < ntiles)
-    prefetch_raw(T, nraw, a.M, blockIdx.x * (long long)TS, RB, nullptr, 0,
-                 nullptr);
+    prefetch_raw(T, nraw, a.M, blockIdx.x * (long long)TS, RB);
   for (long long tile = blockIdx.x; tile < ntiles;
        tile += gridDim.x, buf ^= 1) {
     const long long s0 = tile * TS;
     // the next tile's raw rows load while this one computes
     if (tile + gridDim.x < ntiles)
       prefetch_raw(T, nraw, a.M, s0 + (long long)gridDim.x * TS,
-                   RB + (buf ^ 1) * nraw * TS, nullptr, 0, nullptr);
+                   RB + (buf ^ 1) * nraw * TS);
     else
       cp_async_commit();
     cp_async_wait<1>();
-    __syncthreads();
+    __syncthreads();  // also: the weights are in place (first tile)
     build_x(T, RB + buf * nraw * TS, cin16, X, sx);
     {
       float acc[MTW][NTW][4];
@@ -525,32 +538,39 @@ __device__ float enc_bwd(const float* DX, int o_id, int o_s, int o_c, int j,
   return acc;
 }
 
-template <int HID>
+// NDX: the 8-wide column tiles of the dx product a warp owns, 2 for
+// cin8 <= 128 and 3 above (an idle third tile cost B4 1-3% at cin8 128
+// and 120 on an H100)
+template <int HID, int NDX>
 __global__ void __launch_bounds__(NT, 1)
-fused_shade_bwd_kernel(ShadeIn a, ShadeGrad r, int d_out) {
+fused_shade_bwd_kernel(ShadeIn a, const __grid_constant__ EncTable T,
+                       ShadeGrad r, int d_out) {
   constexpr int SH = HID + 8;
   constexpr int NTW = HID / 64;
   extern __shared__ __align__(16) unsigned char shade_smem[];
   const Layout L = make_layout(a.k0_dim, a.pos_pe, a.ref_pe, a.view_pe,
                                a.use_vd);
   const int cin16 = pad16(L.cin8), sx = cin16 + 8, sdx = cin16 + 1;
-  EncTable& T = *reinterpret_cast<EncTable*>(shade_smem);
-  bf16* W0 = reinterpret_cast<bf16*>(shade_smem + sizeof(EncTable));
+  bf16* W0 = reinterpret_cast<bf16*>(shade_smem);
   bf16* W1 = W0 + cin16 * SH;     // [HID][SH]
   bf16* W2 = W1 + HID * SH;       // [HID][SW2]
   bf16* X = W2 + HID * SW2;       // [TS][sx]
   bf16* H2 = X + TS * sx;         // [TS][SH], then dz1
   bf16* H1 = H2 + TS * SH;        // [TS][SH], then dz0
   bf16* DZ2 = H1 + TS * SH;       // [TS][SW2]: bf16(g), zeros past 8
-  float* DX = reinterpret_cast<float*>(X);  // [TS][sdx] over X and H2
-  float* GB = reinterpret_cast<float*>(DZ2 + TS * SW2);  // 2 x [OUT8][TS]
-  float* RB = GB + 2 * OUT8 * TS;  // 2 x [nraw][TS] staged raw rows
+  // [TS][sdx] fp32 over X and H2 (dead once the dx product is done), and
+  // over the start of H1 where X and H2 are too small (width 128 at cin8
+  // 144): it is then written only once every warp has read its dz0
+  float* DX = reinterpret_cast<float*>(X);
+  const bool dx_over_h1 =
+      (size_t)TS * sdx * sizeof(float) > (size_t)(H1 - X) * sizeof(bf16);
+  float* GB = reinterpret_cast<float*>(DZ2 + TS * SW2);  // [OUT8][TS]
+  float* RB = GB + OUT8 * TS;     // 2 x [nraw][TS] staged raw rows
   const int nraw = a.k0_dim + 9 + 3 * a.use_vd;
   load_w(a.w0, L.cin8, cin16, HID, HID, W0, SH);
   load_w(a.w1, HID, HID, HID, HID, W1, SH);
   load_w(a.w2, HID, HID, OUT8, 16, W2, SW2);
   for (int e = threadIdx.x; e < TS * SW2; e += NT) DZ2[e] = tobf(0.0f);
-  build_table(a, L, cin16, T);  // barrier
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -565,22 +585,24 @@ fused_shade_bwd_kernel(ShadeIn a, ShadeGrad r, int d_out) {
 
   const long long ntiles = (a.M + TS - 1) / TS;
   int buf = 0;
-  if (blockIdx.x < ntiles)
-    prefetch_raw(T, nraw, a.M, blockIdx.x * (long long)TS, RB, r.g, d_out,
-                 GB);
+  if (blockIdx.x < ntiles) {
+    prefetch_raw(T, nraw, a.M, blockIdx.x * (long long)TS, RB);
+    prefetch_g(a.M, blockIdx.x * (long long)TS, r.g, d_out, GB);
+  }
   for (long long tile = blockIdx.x; tile < ntiles;
        tile += gridDim.x, buf ^= 1) {
     const long long s0 = tile * TS;
-    if (tile + gridDim.x < ntiles)
+    const bool more = tile + gridDim.x < ntiles;
+    // in flight: this tile's raw and cotangent rows; the next tile's raw
+    // rows join them
+    if (more)
       prefetch_raw(T, nraw, a.M, s0 + (long long)gridDim.x * TS,
-                   RB + (buf ^ 1) * nraw * TS, r.g, d_out,
-                   GB + (buf ^ 1) * OUT8 * TS);
+                   RB + (buf ^ 1) * nraw * TS);
     else
       cp_async_commit();
     cp_async_wait<1>();
-    __syncthreads();
+    __syncthreads();  // also: the weights and DZ2's zeros are in place
     const float* rb = RB + buf * nraw * TS;
-    const float* gb = GB + buf * OUT8 * TS;
     build_x(T, rb, cin16, X, sx);
     {
       float acc[MTW][NTW][4];
@@ -599,12 +621,14 @@ fused_shade_bwd_kernel(ShadeIn a, ShadeGrad r, int d_out) {
     if (go < OUT8) {
       for (int q = 0; q < 2; ++q) {
         const int s = lane + 32 * q;
-        const float gv = gb[go * TS + s];
+        const float gv = GB[go * TS + s];
         db2 += gv;
         DZ2[s * SW2 + go] = tobf(gv);
       }
     }
     __syncthreads();
+    // GB is read: the next tile's cotangent rows load into it
+    if (more) prefetch_g(a.M, s0 + (long long)gridDim.x * TS, r.g, d_out, GB);
     // dW2 += H2^T dz2: rows i of W2 as M, samples as K
     if (warp < HID / 16) {
 #pragma unroll
@@ -632,12 +656,13 @@ fused_shade_bwd_kernel(ShadeIn a, ShadeGrad r, int d_out) {
     }
     __syncthreads();
     store_tile(H1, SH, HID, HID, r.dz0s + s0 * HID);
-    // dx = dz0 W0^T -> DX fp32 (over X and H2, both dead)
+    // dx = dz0 W0^T -> DX fp32
     {
-      float acc[MTW][2][4];
-      tile_mma<2, false>(acc, H1, SH, W0, SH, HID, L.cin8 / 8);
+      float acc[MTW][NDX][4];
+      tile_mma<NDX, false>(acc, H1, SH, W0, SH, HID, L.cin8 / 8);
+      if (dx_over_h1) __syncthreads();  // uniform across the block
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < NDX; ++j) {
         const int nt = warp_n() + 8 * j;
         if (nt < L.cin8 / 8) {
           const int n = nt * 8 + 2 * t;
@@ -839,15 +864,16 @@ __global__ void shade_reduce_partials_kernel(const float* __restrict__ part,
 // outside it has no kernel and check_dims rejects it.
 struct ShadeKernels {
   int hid;
-  void (*fwd)(ShadeIn, float*, int);
-  void (*bwd)(ShadeIn, ShadeGrad, int);
+  void (*fwd)(ShadeIn, const EncTable, float*, int);
+  void (*bwd)(ShadeIn, const EncTable, ShadeGrad, int);       // cin8 <= 128
+  void (*bwd_wide)(ShadeIn, const EncTable, ShadeGrad, int);  // to MAXROW
   void (*dw)(ShadeGrad, long long, int, int);
 };
 static const ShadeKernels kShadeKernels[] = {
-    {128, fused_shade_fwd_kernel<128>, fused_shade_bwd_kernel<128>,
-     fused_shade_dw_kernel<128>},
-    {192, fused_shade_fwd_kernel<192>, fused_shade_bwd_kernel<192>,
-     fused_shade_dw_kernel<192>},
+    {128, fused_shade_fwd_kernel<128>, fused_shade_bwd_kernel<128, 2>,
+     fused_shade_bwd_kernel<128, 3>, fused_shade_dw_kernel<128>},
+    {192, fused_shade_fwd_kernel<192>, fused_shade_bwd_kernel<192, 2>,
+     fused_shade_bwd_kernel<192, 3>, fused_shade_dw_kernel<192>},
 };
 
 static const ShadeKernels* kernels_for(int hid) {
@@ -857,8 +883,7 @@ static const ShadeKernels* kernels_for(int hid) {
 }
 
 static size_t weights_bytes(int cin8, int hid) {
-  return sizeof(EncTable) +
-         sizeof(bf16) * ((size_t)pad16(cin8) * (hid + 8) +
+  return sizeof(bf16) * ((size_t)pad16(cin8) * (hid + 8) +
                          (size_t)hid * (hid + 8) + (size_t)hid * SW2);
 }
 
@@ -870,11 +895,12 @@ static size_t fwd_smem_bytes(int cin8, int hid, int nraw) {
          sizeof(float) * ((size_t)OUT8 * TS + 2 * (size_t)nraw * TS);
 }
 
+// the cotangent rows staged once, the raw rows twice
 static size_t bwd_smem_bytes(int cin8, int hid, int nraw) {
   return weights_bytes(cin8, hid) +
          sizeof(bf16) * ((size_t)TS * (pad16(cin8) + 8) +
                          2 * (size_t)TS * (hid + 8) + (size_t)TS * SW2) +
-         sizeof(float) * (2 * (size_t)OUT8 * TS + 2 * (size_t)nraw * TS);
+         sizeof(float) * ((size_t)OUT8 * TS + 2 * (size_t)nraw * TS);
 }
 
 static size_t dw_smem_bytes(int hid) {
@@ -945,12 +971,13 @@ extern "C" int fused_shade_fwd(
   if (rc) return rc;
   if (M == 0) return (int)cudaGetLastError();
   const size_t smem = fwd_smem_bytes(cin8, hid, k0_dim + 9 + 3 * use_vd);
-  void (*kern)(ShadeIn, float*, int) = kernels_for(hid)->fwd;
+  void (*kern)(ShadeIn, const EncTable, float*, int) = kernels_for(hid)->fwd;
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   ShadeIn a = make_in(k0, xyz, refl, normal, vd, w0, w1, w2, b0, b1, b2, M,
                       k0_dim, pos_pe, ref_pe, view_pe, use_vd, cin8);
-  kern<<<nblk, NT, smem, (cudaStream_t)stream>>>(a, (float*)out, d_out);
+  kern<<<nblk, NT, smem, (cudaStream_t)stream>>>(a, make_table(a),
+                                                 (float*)out, d_out);
   return (int)cudaGetLastError();
 }
 
@@ -992,9 +1019,11 @@ extern "C" int fused_shade_bwd(
     r.part = (float*)part;
     r.n_part = n_part;
     const size_t smem = bwd_smem_bytes(cin8, hid, k0_dim + 9 + 3 * use_vd);
-    cudaError_t err = set_smem(ks->bwd, smem);
+    void (*bwd)(ShadeIn, const EncTable, ShadeGrad, int) =
+        cin8 <= 128 ? ks->bwd : ks->bwd_wide;
+    cudaError_t err = set_smem(bwd, smem);
     if (err != cudaSuccess) return (int)err;
-    ks->bwd<<<nblk, NT, smem, st>>>(a, r, d_out);
+    bwd<<<nblk, NT, smem, st>>>(a, make_table(a), r, d_out);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const size_t smem_dw = dw_smem_bytes(hid);

@@ -151,14 +151,25 @@ def evaluate_checkpoint(ckpt_path: str, cfg, data_dict, out_dir: str, *,
     log.info(f"mesh ({len(verts)} verts, {len(tris)} tris) saved at "
              f"{mesh_path}")
 
-    # DTU chamfer runs where the ObsMask data is present
+    # DTU Chamfer against the ground-truth point cloud wherever the DTU
+    # ObsMask data is present, writing result<stage>.txt next to the mesh
     # (`eval/evaluator.py:156-183`)
     if cfg.data.dataset_type == "dtu" and scene:
         dtu_dir = os.path.dirname(
             os.path.abspath(str(cfg.data.datadir).rstrip("/")))
         obsmask = os.path.join(dtu_dir, "ObsMask", f"ObsMask{scene}_10.mat")
         if os.path.exists(obsmask):
-            raise NotImplementedError(
-                "DTU chamfer evaluation is not ported yet (ROADMAP item A10)")
-        log.warning(f"DTU chamfer skipped: no ObsMask data at {obsmask}")
+            from fgs_nerf_tpu_torch.eval.dtu_chamfer import dtu_chamfer
+
+            d2s, s2d, overall = dtu_chamfer(
+                mesh_path, scene, dtu_dir,
+                eval_dir=os.path.join(out_dir, "meshes"), suffix=stage_label)
+            log.info(f"DTU chamfer scan{scene}: "
+                     f"[ d2s: {d2s:.3f} | s2d: {s2d:.3f} | mean: {overall:.3f} ]")
+            if stats is not None:
+                stats["chamfer"] = overall
+        else:
+            log.warning(
+                f"DTU chamfer skipped: no ObsMask data at {obsmask} "
+                "(expected <dtu_root>/ObsMask + <dtu_root>/Points/stl)")
     return stats, mesh_path

@@ -129,3 +129,32 @@ def write_ply(path: str, verts: np.ndarray, tris: np.ndarray) -> None:
         f.write(("\n".join(header) + "\n").encode())
         f.write(np.ascontiguousarray(verts, "<f4").tobytes())
         f.write(faces.tobytes())
+
+
+def read_ply(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """The binary PLY files of ``write_ply`` (and of the JAX package's,
+    with or without uchar vertex colours) -> (verts f32 [V, 3], tris
+    int64 [F, 3]): ``fgs_nerf_tpu/eval/mesh.py:235-258``, read as whole
+    arrays instead of one record at a time.  Faces must be triangles."""
+    with open(path, "rb") as f:
+        n_verts = n_tris = 0
+        colours = False
+        line = f.readline().strip()
+        while line != b"end_header":
+            if line.startswith(b"element vertex"):
+                n_verts = int(line.split()[-1])
+            elif line.startswith(b"element face"):
+                n_tris = int(line.split()[-1])
+            elif line.startswith(b"property uchar red"):
+                colours = True
+            line = f.readline().strip()
+        vtype = [("p", "<f4", (3,))] + ([("c", "u1", (3,))] if colours else [])
+        v = np.fromfile(f, dtype=vtype, count=n_verts)
+        faces = np.fromfile(f, dtype=[("n", "u1"), ("v", "<i4", (3,))],
+                            count=n_tris)
+    if len(v) != n_verts or len(faces) != n_tris:
+        raise ValueError(f"{path}: truncated PLY body")
+    if n_tris and not (faces["n"] == 3).all():
+        raise ValueError(f"{path}: faces other than triangles")
+    return (np.ascontiguousarray(v["p"], np.float32),
+            faces["v"].astype(np.int64))

@@ -36,6 +36,9 @@ KERNEL = CudaKernel(
 # hidden widths with a CUDA instance: kShadeKernels in the source, which
 # also rejects any other width
 KERNEL_HIDDENS = (128, 192)
+# padded input rows of the CUDA kernels (MAXROW in the source): the DTU
+# coarse head (k0 12, pe 5 / 5 / 3, viewdir) has 144
+MAX_CIN8 = 144
 OUT8 = 8
 TILE = 64  # samples per tile of the CUDA kernels
 
@@ -70,8 +73,8 @@ def shade_layout(k0_dim, pos_pe, ref_pe, view_pe, use_viewdir):
 
 
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
-    """Round to bf16 (nearest even) and back to f32."""
-    return x.to(torch.bfloat16).to(torch.float32)
+    """Round to bf16 (nearest even) and back to the input's dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
 
 
 def _enc_sub(v: torch.Tensor, pe: int):
@@ -150,12 +153,17 @@ def _enc_bwd(v, pe, d_id, d_sin, d_cos):
 # ---------------------------------------------------------------------------
 
 
+def _as(ts, x):
+    """The twins sum in the inputs' dtype, whatever the weights' is."""
+    return [t.to(x.dtype) for t in ts]
+
+
 def fused_shade_cm_fwd_plain(k0, xyz, refl, normal, vd, weights, biases,
                              pos_pe, ref_pe, view_pe) -> torch.Tensor:
     """Plain PyTorch B3: [3, M] pre-sigmoid logits."""
     x = build_shade_x(k0, xyz, refl, normal, vd, pos_pe, ref_pe, view_pe)
     rows = shade_layout(k0.shape[0], pos_pe, ref_pe, view_pe, vd is not None)
-    wps, bps = pad_weights(weights, biases, rows)
+    wps, bps = pad_weights(_as(weights, x), _as(biases, x), rows)
     h = x
     n = len(wps)
     for li in range(n):
@@ -171,7 +179,7 @@ def fused_shade_cm_bwd_plain(k0, xyz, refl, normal, vd, weights, biases, g,
     x = build_shade_x(k0, xyz, refl, normal, vd, pos_pe, ref_pe, view_pe)
     rows = shade_layout(k0.shape[0], pos_pe, ref_pe, view_pe, vd is not None)
     offs, _ = pad_plan(rows)
-    wps, bps = pad_weights(weights, biases, rows)
+    wps, bps = pad_weights(_as(weights, x), _as(biases, x), rows)
     w16 = [bf16_round(w) for w in wps]
     n = len(wps)
     zs, hs = [], [x]
@@ -215,11 +223,12 @@ def _kernel_operands(k0, xyz, refl, normal, vd, weights, biases, pos_pe,
     hid = weights[0].shape[1]
     d_out = weights[-1].shape[1]
     if (len(weights) != 3 or hid not in KERNEL_HIDDENS
-            or weights[1].shape != (hid, hid) or cin8 > 128
+            or weights[1].shape != (hid, hid) or cin8 > MAX_CIN8
             or d_out > OUT8):
         raise ValueError(
             f"fused_shade_cm kernel: supports a 3-layer refnet of width "
-            f"{KERNEL_HIDDENS} with <= 128 padded inputs and <= 8 outputs; "
+            f"{KERNEL_HIDDENS} with <= {MAX_CIN8} padded inputs and <= 8 "
+            f"outputs; "
             f"got widths {[tuple(w.shape) for w in weights]}, cin8 {cin8}")
     ins = [k0, xyz, refl, normal] + ([vd] if vd is not None else [])
     m = k0.shape[-1]

@@ -147,12 +147,8 @@ def test_share_limit_needs_many_logits():
     ws = [t(i, o, scale=1 / np.sqrt(i)) for i, o in zip(dims[:-1], dims[1:])]
     bs = [t(o, scale=0.1) for o in dims[1:]]
     f32 = FT.fused_shade_cm_fwd_plain(*ins, ws, bs, *PE)
-    real = FT.bf16_round
-    try:
-        FT.bf16_round = lambda x: x.to(torch.bfloat16).to(x.dtype)
-        f64 = FT.fused_shade_cm_fwd_plain(
-            *[x.double() for x in ins], [w.double() for w in ws],
-            [b.double() for b in bs], *PE).float()
-    finally:
-        FT.bf16_round = real
+    # bf16_round keeps its input's dtype: the same roundings, float64 sums
+    f64 = FT.fused_shade_cm_fwd_plain(
+        *[x.double() for x in ins], [w.double() for w in ws],
+        [b.double() for b in bs], *PE).float()
     assert float(((f32 - f64).abs() > 1e-5).float().mean()) > 0.01

@@ -53,6 +53,9 @@ def test_port_imports_no_jax():
                  "fgs_nerf_tpu_torch.train.pipeline",
                  "fgs_nerf_tpu_torch.data.dataset",
                  "fgs_nerf_tpu_torch.data.blender",
+                 "fgs_nerf_tpu_torch.data.dtu",
+                 "fgs_nerf_tpu_torch.data.idr_like",
+                 "fgs_nerf_tpu_torch.eval.dtu_chamfer",
                  "fgs_nerf_tpu_torch.eval.image_io",
                  "fgs_nerf_tpu_torch.eval.mesh",
                  "fgs_nerf_tpu_torch.eval.evaluator",
@@ -60,6 +63,25 @@ def test_port_imports_no_jax():
                  "fgs_nerf_tpu_torch.ops.cuda.fused_mlp_cm",
                  "fgs_nerf_tpu_torch.run"):
         assert name in res["modules"]
+
+
+def test_chip_smoke_imports_no_jax(tmp_path):
+    """``chip_smoke.py`` and the port modules its DTU scan writers use
+    leave JAX and the JAX package out of ``sys.modules``."""
+    probe = (
+        "import json, sys\n"
+        "sys.path.insert(0, '.')\n"
+        "import chip_smoke as CS\n"
+        f"sm = CS.write_dtu_scan({str(tmp_path / 'scan')!r}, 2, hw=(12, 16))\n"
+        f"CS.write_dtu_eval_data({str(tmp_path)!r}, 1, sm, n_points=10)\n"
+        "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0]\n"
+        "      in ('jax', 'jaxlib', 'fgs_nerf_tpu'))))\n")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    assert (tmp_path / "scan" / "image" / "000001.png").is_file()
+    assert (tmp_path / "ObsMask" / "Plane1.mat").is_file()
 
 
 def test_entry_points_default_to_the_card():

@@ -54,6 +54,7 @@ from fgs_nerf_tpu_torch.train.trainer import make_loss_and_grads
 import test_torch_streams as STREAMS
 
 PE = (5, 5, 1)
+PE_DTU = (5, 5, 3)  # the `dtu` config's coarse head: viewbase_pe 3
 
 
 @pytest.fixture
@@ -181,6 +182,44 @@ def test_b5_match_plain(cuda, case, taps):
     assert torch.equal(got.cpu(), B56.tap_window_serve_cm_plain(*cpu))
 
 
+def _shade_operands(cuda, k0_dim, pe, use_vd, hid, m):
+    rng = np.random.default_rng(6)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.normal(size=shape) * scale).astype(np.float32)).to(cuda)
+
+    ins = [t(k0_dim, m), t(3, m), t(3, m), t(3, m), t(3, m) if use_vd else None]
+    rows = FS.shade_layout(k0_dim, *pe, use_vd)
+    dims = (sum(rows), hid, hid, 3)
+    ws = [t(i, o, scale=1 / np.sqrt(i)) for i, o in zip(dims[:-1], dims[1:])]
+    bs = [t(o, scale=0.1) for o in dims[1:]]
+    return ins, ws, bs, t(3, m), FS.pad_plan(rows)[1]
+
+
+def _check_b3_b4(ins, ws, bs, g, pe):
+    """B3 within 1e-2 of its twin with at most 1% of the logits past
+    1e-5, B4 within relative L2 1e-3, dW bit-equal on a repeat; each
+    call raises its launch count."""
+    n_fwd = FS.KERNEL.launches["fused_shade_fwd"]
+    n_bwd = FS.KERNEL.launches["fused_shade_bwd"]
+    got = FS.fused_shade_cm_fwd(*ins, ws, bs, *pe)
+    assert FS.KERNEL.launches["fused_shade_fwd"] == n_fwd + 1
+    err = (got - FS.fused_shade_cm_fwd_plain(*ins, ws, bs, *pe)).abs()
+    assert float(err.max()) < 1e-2
+    assert float((err > 1e-5).float().mean()) < 0.01
+    d_k, dws_k, dbs_k = FS.fused_shade_cm_bwd(*ins, ws, bs, g, *pe)
+    assert FS.KERNEL.launches["fused_shade_bwd"] == n_bwd + 1
+    d_p, dws_p, dbs_p = FS.fused_shade_cm_bwd_plain(*ins, ws, bs, g, *pe)
+    for a, b in zip(list(d_k) + dws_k + dbs_k, list(d_p) + dws_p + dbs_p):
+        if b is None:
+            assert a is None
+            continue
+        assert _rel_l2(a, b) < 1e-3
+    d_again = FS.fused_shade_cm_bwd(*ins, ws, bs, g, *pe)
+    assert all(torch.equal(a, b) for a, b in zip(dws_k, d_again[1]))
+
+
 @pytest.mark.parametrize("m", [5000, 80 * FS.TILE, 37])
 @pytest.mark.parametrize("hid", FS.KERNEL_HIDDENS)
 @pytest.mark.parametrize("use_vd", [True, False])
@@ -188,36 +227,32 @@ def test_b3_b4_match_plain(cuda, use_vd, hid, m):
     """The coarse bench layout (k0 12, pe 5/5/1, viewdir on: cin8 128) and
     one without viewdir, at M off a multiple of the sample tile, one
     whole number of tiles, and less than one tile."""
-    rng = np.random.default_rng(6)
+    ins, ws, bs, g, cin8 = _shade_operands(cuda, 12, PE, use_vd, hid, m)
+    assert cin8 == (128 if use_vd else 104)
+    _check_b3_b4(ins, ws, bs, g, PE)
 
-    def t(*shape, scale=1.0):
-        return torch.from_numpy(
-            (rng.normal(size=shape) * scale).astype(np.float32)).to(cuda)
 
-    ins = [t(12, m), t(3, m), t(3, m), t(3, m), t(3, m) if use_vd else None]
-    rows = FS.shade_layout(12, *PE, use_vd)
-    assert FS.pad_plan(rows)[1] == (128 if use_vd else 104)
-    dims = (sum(rows), hid, hid, 3)
-    ws = [t(i, o, scale=1 / np.sqrt(i)) for i, o in zip(dims[:-1], dims[1:])]
-    bs = [t(o, scale=0.1) for o in dims[1:]]
-    g = t(3, m)
-    n_fwd = FS.KERNEL.launches["fused_shade_fwd"]
-    n_bwd = FS.KERNEL.launches["fused_shade_bwd"]
-    got = FS.fused_shade_cm_fwd(*ins, ws, bs, *PE)
-    assert FS.KERNEL.launches["fused_shade_fwd"] == n_fwd + 1
-    err = (got - FS.fused_shade_cm_fwd_plain(*ins, ws, bs, *PE)).abs()
-    assert float(err.max()) < 1e-2
-    assert float((err > 1e-5).float().mean()) < 0.01
-    d_k, dws_k, dbs_k = FS.fused_shade_cm_bwd(*ins, ws, bs, g, *PE)
-    assert FS.KERNEL.launches["fused_shade_bwd"] == n_bwd + 1
-    d_p, dws_p, dbs_p = FS.fused_shade_cm_bwd_plain(*ins, ws, bs, g, *PE)
-    for a, b in zip(list(d_k) + dws_k + dbs_k, list(d_p) + dws_p + dbs_p):
-        if b is None:
-            assert a is None
-            continue
-        assert _rel_l2(a, b) < 1e-3
-    d_again = FS.fused_shade_cm_bwd(*ins, ws, bs, g, *PE)
-    assert all(torch.equal(a, b) for a, b in zip(dws_k, d_again[1]))
+@pytest.mark.parametrize("m", [5000, 80 * FS.TILE, 37])
+@pytest.mark.parametrize("hid", FS.KERNEL_HIDDENS)
+def test_b3_b4_match_plain_at_cin8_144(cuda, hid, m):
+    """The DTU coarse layout (k0 12, pe 5/5/3, viewdir on: cin8 144, the
+    kernels' widest), held as the bench layout is."""
+    ins, ws, bs, g, cin8 = _shade_operands(cuda, 12, PE_DTU, True, hid, m)
+    assert cin8 == FS.MAX_CIN8 == 144
+    _check_b3_b4(ins, ws, bs, g, PE_DTU)
+
+
+def test_b3_b4_raise_past_cin8_144(cuda):
+    """cin8 152 (k0 20 at the DTU encodings) has no kernel: both wrappers
+    raise on CUDA tensors, launch nothing and take no plain path."""
+    ins, ws, bs, g, cin8 = _shade_operands(cuda, 20, PE_DTU, True, 192, 256)
+    assert cin8 == 152
+    before = dict(FS.KERNEL.launches)
+    with pytest.raises(ValueError, match="padded inputs"):
+        FS.fused_shade_cm_fwd(*ins, ws, bs, *PE_DTU)
+    with pytest.raises(ValueError, match="padded inputs"):
+        FS.fused_shade_cm_bwd(*ins, ws, bs, g, *PE_DTU)
+    assert FS.KERNEL.launches == before
 
 
 def test_coarse_step_kernels_match_plain(cuda):
