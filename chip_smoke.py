@@ -460,14 +460,15 @@ def _touched(torch, cols, pack):
 
 
 def _check_serve(torch, name, fn, plain, args, touched, n_flops, path):
-    """A serve kernel (B1, B5): bit-equal to its twin; timed; bound by the
-    bytes its call must move (the touched pack columns, inputs, output)
-    and, beside it, by the same with the touched pack columns counted in
-    whole 32-byte sectors."""
+    """A serve kernel (B1, B5): bit-equal to its twin and on a repeat;
+    timed; bound by the bytes its call must move (the touched pack
+    columns, inputs, output) and, beside it, by the same with the touched
+    pack columns counted in whole 32-byte sectors."""
     got = fn(*args)
     want = plain(*args)
     err = float((got - want).abs().max())
     _check(err == 0.0, f"{name} ({path}) differs from its plain twin: {err}")
+    _check(torch.equal(got, fn(*args)), f"{name} ({path}) is not deterministic")
     cols, sectors = touched
     rest = _nbytes(*args[1:], got)
     bound = _bound(cols + rest, n_flops, PEAK_F32_FLOPS)
@@ -548,6 +549,58 @@ def _ptxas(kernel, fragments):
     return out
 
 
+def _kernel_ms(torch, fn, fragments, n=2):
+    """Device ms per call of the kernels whose names hold each of
+    ``fragments`` (the first that matches), from ``torch.profiler`` over
+    ``n`` calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {f: 0.0 for f in fragments}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        f = next((f for f in fragments if f in e.key), None)
+        if f is not None:
+            out[f] += t / (1e3 * n)
+    return out
+
+
+def _b9_plan(torch, blocks, ws):
+    """B9's plan for one call (``ops/cuda/fused_mlp_cm.py:bwd_plan`` over
+    the wrapper's padded widths) and its blocks' dynamic shared memory by
+    the launcher's own formula (``fused_mlp_bwd_smem_bytes``)."""
+    import ctypes
+
+    from fgs_nerf_tpu_torch.ops import fused_mlp_cm as FM
+    from fgs_nerf_tpu_torch.ops.cuda import fused_mlp_cm as B89
+
+    rows = [b.shape[0] for b in blocks]
+    kp = ([B89._pad16(FM.pad_plan(rows)[1])]
+          + [B89._pad16(w.shape[0]) for w in ws[1:]])
+    np_ = [B89._pad16(w.shape[1]) for w in ws]
+    n_sm = torch.cuda.get_device_properties(blocks[0].device)
+    plan = B89.bwd_plan(blocks[0].shape[1], kp, np_,
+                        n_sm.multi_processor_count)
+    f = B89.KERNEL.lib().fused_mlp_bwd_smem_bytes
+    f.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                  ctypes.c_int]
+    f.restype = ctypes.c_longlong
+    c_kp = (ctypes.c_int * len(kp))(*kp)
+    c_np = (ctypes.c_int * len(np_))(*np_)
+    smem = {"tile": f(c_kp, c_np, len(kp), 0), "dw": f(c_kp, c_np, len(kp), 1)}
+    return plan, smem
+
+
+# B9's kernels: fragments of their mangled names
+_MLP_BWD_ENTRIES = ("fused_mlp_tile_bwd", "fused_mlp_dw",
+                    "mlp_reduce_partials")
 # B6's kernels: fragments of their mangled names
 _TAP_ACCUMULATE_ENTRIES = ("tap_tile_accumulate", "tap_block_sums",
                            "tap_run_totals")
@@ -647,7 +700,8 @@ def _mlp_chain_bwd_ms(torch, blocks, ws, bs):
 
 def _check_shade_fwd(torch, args, path):
     """B3: within 1e-2 of its twin with at most 1% of the logits past
-    1e-5; timed; bound by its products at the bf16 peak."""
+    1e-5, bit-equal on a repeat; timed; bound by its products at the
+    bf16 peak."""
     from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
 
     k0, xyz, refl, normal, vd, ws, bs, *pe = args
@@ -660,6 +714,8 @@ def _check_shade_fwd(torch, args, path):
     frac = float((diff > 1e-5).float().mean())
     _check(err < 1e-2 and frac < 0.01,
            f"B3 ({path}): max {err}, past 1e-5 {frac}")
+    _check(torch.equal(got, FS.fused_shade_cm_fwd(*ins, ws, bs, *pe)),
+           f"B3 ({path}) is not deterministic")
     macs = sum(w.shape[0] * w.shape[1] for w in ws)
     bound = _bound(_nbytes(*ins, *ws, *bs, got), 2 * macs * m,
                    PEAK_BF16_FLOPS)
@@ -748,8 +804,8 @@ def _shade_bwd_band(torch, FS, ins, ws, bs, pe, kern, plain):
 def _check_shade_bwd(torch, args, path):
     """B4: every cotangent, dW and db within relative L2 1e-3 of its
     twin, where a cotangent is past it, as ``_shade_bwd_band`` (see the
-    module's tolerances); dW bit-equal on a repeat; timed; bound as
-    ``_mlp_bwd_flops``."""
+    module's tolerances); every output bit-equal on a repeat; timed;
+    bound as ``_mlp_bwd_flops``."""
     from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
 
     k0, xyz, refl, normal, vd, ws, bs, g, *pe = args
@@ -774,8 +830,10 @@ def _check_shade_bwd(torch, args, path):
                f"B4 ({path}) cotangents off their twin: {band}")
     del kern, plain
     again = FS.fused_shade_cm_bwd(*ins, ws, bs, g, *pe)
-    _check(all(torch.equal(a, b) for a, b in zip(dw_k, again[1])),
-           f"B4 ({path}) dW is not deterministic")
+    _check(all((a is None and b is None) or torch.equal(a, b) for a, b in
+               zip(list(d_k) + dw_k + db_k,
+                   list(again[0]) + again[1] + again[2])),
+           f"B4 ({path}) is not deterministic")
     out_bytes = _nbytes(*[d for d in d_k if d is not None], *dw_k, *db_k)
     bound = _bound(_nbytes(*ins, *ws, *bs, g) + out_bytes,
                    _mlp_bwd_flops(ws, m), PEAK_BF16_FLOPS)
@@ -1241,6 +1299,7 @@ def _mlp_phase(torch, np, card, dev, batch, n_rand):
 
     _check(not any(B89.KERNEL.launches.values()),
            f"B8/B9 launched before phase 13: {B89.KERNEL.launches}")
+    torch.cuda.reset_peak_memory_stats()
     cfg, _, params0, _, s_val, loss_and_grads, _ = _setup(
         torch, M, "fine", "sorted", dev, n_rand)
     seen = []
@@ -1329,6 +1388,9 @@ def _mlp_phase(torch, np, card, dev, batch, n_rand):
         print(json.dumps({"kernel": "fused_mlp_fwd", **r, "card": card}))
         torch.cuda.empty_cache()
 
+        plan, smem = _b9_plan(torch, blocks, ws)
+        _check(smem == {"tile": plan["smem_tile"], "dw": plan["smem_dw"]},
+               f"B9 {name}: shared memory {smem} vs the wrapper's plan {plan}")
         dx, dws, dbs = FM.fused_mlp_cm_bwd(blocks, ws, bs, g)
         plain = _b9_outputs(FM.fused_mlp_cm_bwd_plain(blocks, ws, bs, g))
         kernel = [dx] + dws + dbs
@@ -1366,11 +1428,21 @@ def _mlp_phase(torch, np, card, dev, batch, n_rand):
                            for k, v in control.items()},
                  ms=_time_ms(lambda: FM.fused_mlp_cm_bwd(blocks, ws, bs, g), 2,
                              torch),
+                 # the per-tile pass, the dW kernel and the partial sums
+                 kernels_ms=_kernel_ms(
+                     torch, lambda: FM.fused_mlp_cm_bwd(blocks, ws, bs, g),
+                     _MLP_BWD_ENTRIES),
+                 scratch_bytes=2 * plan["scratch_elems"],
+                 plan={k: plan[k] for k in ("nblk", "slices", "nr", "n_dwl")},
+                 dynamic_smem_bytes=smem,
                  plain_ms=_time_ms(
                      lambda: FM.fused_mlp_cm_bwd_plain(blocks, ws, bs, g), 1,
                      torch),
                  bound_ms=bound[0], bound_by=bound[1], library_ms=None,
                  matmul_chain_ms=_mlp_chain_bwd_ms(torch, blocks, ws, bs))
+        # device memory: the phase's peak so far (the recorded inputs, the
+        # nets, B9's scratch and partials, the twin's and chain's operands)
+        r["phase_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         calls["fused_mlp_bwd"].append(r)
         print(json.dumps({"kernel": "fused_mlp_bwd", **r, "card": card}))
         torch.cuda.empty_cache()
@@ -2127,6 +2199,12 @@ def main():
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None,
             "matmul_chain_ms": main.get("matmul_chain_ms"),
+            **({"kernels_ms": main["kernels_ms"],
+                "scratch_bytes": main["scratch_bytes"],
+                "dynamic_smem_bytes": main["dynamic_smem_bytes"],
+                "phase_peak_gb": max(c["phase_peak_gb"] for c in calls),
+                "ptxas": _ptxas(B89.KERNEL, _MLP_BWD_ENTRIES)}
+               if name == "fused_mlp_bwd" else {}),
             "timed_call": main["path"],
             "launches_path": "the fused_mlp_cm op, forward and backward of "
                              "the rgbnet and the refnet",

@@ -168,26 +168,6 @@ __host__ __device__ inline Layout make_layout(int k0_dim, int pos_pe,
 
 __device__ inline bf16 tobf(float v) { return __float2bfloat16_rn(v); }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(smem)), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_addr(smem)), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most `n` of this thread's groups are in flight.
-template <int n>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
-}
-
 // ---------------------------------------------------------------------------
 // encodings
 // ---------------------------------------------------------------------------

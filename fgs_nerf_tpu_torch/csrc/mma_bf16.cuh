@@ -1,7 +1,7 @@
 // bf16 tensor-core helpers shared by the fused MLP (B8/B9,
 // fused_mlp_cm.cu) and the fused shading head (B3/B4, fused_shade_cm.cu):
 // the mma.sync m16n8k16 product (bf16 in, fp32 accumulate), bf16 packing,
-// and ldmatrix fragment loads from shared memory.
+// ldmatrix fragment loads from shared memory, and cp.async copies.
 //
 // Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row): a0 = A[g][2t..2t+1],   a1 = A[g+8][2t..2t+1],
@@ -95,4 +95,24 @@ __device__ __forceinline__ void frag_b_t(uint32_t& b0, uint32_t& b1,
                                          int n0, int k0, int lane) {
   const int q = (lane >> 3) & 1, r = lane & 7;
   ldsm_x2_t(b0, b1, S + (k0 + q * 8 + r) * sb + n0);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(smem)), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(smem)), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most `n` of this thread's groups are in flight.
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
 }

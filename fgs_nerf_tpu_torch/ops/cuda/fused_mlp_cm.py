@@ -3,12 +3,15 @@
 Replaces ``fgs_nerf_tpu/ops/pallas/fused_mlp_cm.py:231``
 (``fused_mlp_cm_fwd_pallas``) and ``:258`` (``fused_mlp_cm_bwd_pallas``);
 the CUDA source is ``csrc/fused_mlp_cm.cu`` (design and bound in its
-header: 64-sample tiles in shared memory, bf16 ``mma.sync`` tensor-core
-products with B fragments from L2, deterministic per-block dW/db
-partials; operations-bound).  The function, its plain twins and the
-autograd op live in ``ops/fused_mlp_cm.py``; this module prepares the
-kernels' operands (every dim padded to 16 with zeros, the weights in bf16
-in both [out][in] and [in][out] order) and launches them.
+header; operations-bound).  B8: 64-sample tiles in shared memory, bf16
+``mma.sync`` products with B fragments from L2.  B9: a per-tile pass on
+128-sample tiles with the weights staged in shared memory, which writes
+dx, the tile's bf16 activations and cotangents to a scratch buffer and
+per-block bias sums; a split-K dW kernel over sample ranges; and a
+fixed-order sum of the partials (``bwd_plan``).  The function, its plain
+twins and the autograd op live in ``ops/fused_mlp_cm.py``; this module
+prepares the kernels' operands (every dim padded to 16 with zeros, the
+weights in bf16 in both [out][in] and [in][out] order) and launches them.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ KERNEL = CudaKernel(
     {
         "fused_mlp_fwd": (P, P, P, I32, P, P, P, P, I32, I32, I32, I64, P, P),
         "fused_mlp_bwd": (P, P, P, I32, P, P, P, P, P, I32, I32, I32, I64,
-                          P, P, P, P, I32, P),
+                          P, P, P, I64, P, I32, P, I32, P, P),
     },
 )
 
@@ -33,10 +36,64 @@ MAX_BLOCKS = 16
 MAX_LAYERS = 8
 TILE = 64
 SMEM_MAX = 232448  # bytes of shared memory a block can use on an H100
-
+# B9 (the launcher's own constants, csrc/fused_mlp_cm.cu)
+BWD_TILE = 128      # samples per tile of the per-tile pass (BT)
+BWD_WM = 2          # warps along the samples of a per-tile block (WM)
+KC, NSTAGE = 64, 3  # weight rows per staged chunk, chunks staged
+NPASS = 256         # widest output of a layer
+SMALL_NP = 16       # a last layer this narrow keeps its dW in registers
+DW_ROWS = 64        # weight rows of a dW slice
+DW_CHUNK = 64       # samples per dW chunk
+DW_BLOCKS_PER_SM = 4  # dW blocks per SM: two resident, two waves
 
 def _pad16(r: int) -> int:
     return (r + 15) // 16 * 16
+
+
+def _pad64(r: int) -> int:
+    return (r + 63) // 64 * 64
+
+
+def bwd_plan(m: int, kp: Sequence[int], np_: Sequence[int],
+             n_sm: int) -> dict:
+    """B9's scratch and partials for M = ``m`` samples and padded layer
+    widths ``kp`` (inputs) / ``np_`` (outputs), as the launcher plans
+    them: the per-tile pass's blocks (``nblk``) and shared memory, which
+    layers go through the dW kernel (``n_dwl``; a 16-output last layer
+    keeps its dW in the per-tile pass), the bf16 scratch elements, the dW
+    slices and sample ranges (``nr``), and the partial rows."""
+    n_layers = len(kp)
+    small = np_[-1] == SMALL_NP and kp[-1] <= NPASS
+    n_dwl = n_layers - small
+    ntiles = -(-m // BWD_TILE)
+    mp = ntiles * BWD_TILE
+    aw = [_pad64(k) for k in kp[:n_dwl]]
+    slices = sum(a // DW_ROWS for a in aw)
+    sa = max(kp[0], *np_) + 8
+    smem_tile = (2 * (BWD_TILE * sa + NSTAGE * KC * (NPASS + 8)
+                      + (BWD_TILE * 24 if small else 0))
+                 + 4 * (BWD_TILE // 8) * (NPASS // 8) * 2 * (n_layers - 1)
+                 + 4 * BWD_WM * n_layers * NPASS + 8 * kp[0])
+    return dict(
+        mp=mp, n_dwl=n_dwl,
+        nblk=max(1, min(n_sm, ntiles)),
+        scratch_elems=mp * sum(a + n for a, n in zip(aw, np_)),
+        slices=slices,
+        nr=max(1, min(DW_BLOCKS_PER_SM * n_sm // max(slices, 1),
+                      mp // DW_CHUNK)),
+        n_dw=sum(k * n for k, n in zip(kp[:n_dwl], np_)),
+        n_t=(kp[-1] * np_[-1] if small else 0) + sum(np_),
+        smem_tile=smem_tile,
+        smem_dw=2 * 2 * DW_CHUNK * (DW_ROWS + 8 + NPASS + 8))
+
+
+def dw_ranges(mp: int, nr: int):
+    """The dW kernel's sample ranges [begin, end) over the ``mp`` padded
+    samples: whole DW_CHUNK chunks, split as evenly as the launcher
+    splits them (range r takes chunks r * n // nr .. (r + 1) * n // nr)."""
+    n = mp // DW_CHUNK
+    return [(r * n // nr * DW_CHUNK, (r + 1) * n // nr * DW_CHUNK)
+            for r in range(nr)]
 
 
 def _arr(ctype, values):
@@ -84,15 +141,21 @@ class _Operands:
                 self.w.append(wp.contiguous().to(torch.bfloat16))
             self.b.append(torch.nn.functional.pad(
                 bias.float(), (0, np_ - bias.shape[0])).contiguous())
-        smem = TILE * 2 * (self.kp[0] + 8)
-        hid = [n + 8 for n in self.np_[:-1]]
-        smem += (TILE * 2 * (sum(hid) + 2 * (max(self.np_) + 8)) if backward
-                 else TILE * 2 * 2 * (max(hid, default=8)))
+        widths = [tuple(w.shape) for w in weights]
+        if backward:
+            if max(self.np_) > NPASS:
+                raise ValueError(
+                    f"fused_mlp_cm_bwd kernel: layer widths {widths} pad "
+                    f"past {NPASS} outputs")
+            smem = bwd_plan(m, self.kp, self.np_, 1)["smem_tile"]
+        else:
+            smem = TILE * 2 * (self.kp[0] + 8)
+            hid = [n + 8 for n in self.np_[:-1]]
+            smem += TILE * 2 * 2 * (max(hid, default=8))
         if smem > SMEM_MAX:
             raise ValueError(
                 f"fused_mlp_cm kernel: needs {smem} bytes of shared memory "
-                f"for widths {[tuple(w.shape) for w in weights]}; the card "
-                f"gives a block {SMEM_MAX}")
+                f"for widths {widths}; the card gives a block {SMEM_MAX}")
         self.ptr_blocks = _arr(ctypes.c_void_p, [b.data_ptr() for b in blocks])
         self.c_rows = _arr(ctypes.c_int, rows)
         self.c_offs = _arr(ctypes.c_int, offs)
@@ -122,31 +185,37 @@ def launch_fwd(blocks: Sequence[torch.Tensor], weights, biases) -> torch.Tensor:
 
 def launch_bwd(blocks, weights, biases, g: torch.Tensor):
     """Launch B9 -> (dx_pad [Cin8, M] f32, padded transposed dW list
-    [np, kp], padded db list [np]); ``ops/fused_mlp_cm.py`` unpads."""
+    [np, kp], padded db list [np]); ``ops/fused_mlp_cm.py`` unpads.  The
+    scratch and both partial buffers are ``torch.empty``: the kernels
+    write every element once before it is read."""
     ops = _Operands(blocks, weights, biases, backward=True)
     dev = blocks[0].device
     if (g.shape != (ops.d_out, ops.m) or g.dtype != torch.float32
             or not g.is_cuda or not g.is_contiguous()):
         raise ValueError("fused_mlp_cm_bwd: g must be contiguous CUDA f32 "
                          "[d_out, M]")
+    plan = bwd_plan(ops.m, ops.kp, ops.np_,
+                    torch.cuda.get_device_properties(dev).multi_processor_count)
     dx = torch.empty((ops.cin8, ops.m), dtype=torch.float32, device=dev)
-    sizes: List[int] = []
-    for kp, np_ in zip(ops.kp, ops.np_):
-        sizes += [np_ * kp, np_]
-    n_part = sum(sizes)
-    nblk = torch.cuda.get_device_properties(dev).multi_processor_count
-    nblk = max(1, min(nblk, (ops.m + TILE - 1) // TILE))
-    part = torch.zeros((nblk, n_part), dtype=torch.float32, device=dev)
-    dwb = torch.empty((n_part,), dtype=torch.float32, device=dev)
+    scratch = torch.empty((plan["scratch_elems"],), dtype=torch.bfloat16,
+                          device=dev)
+    part_t = torch.empty((plan["nblk"], plan["n_t"]), dtype=torch.float32,
+                         device=dev)
+    part_dw = torch.empty((plan["nr"], plan["n_dw"]), dtype=torch.float32,
+                          device=dev)
+    sizes: List[int] = [kp * np_ for kp, np_ in zip(ops.kp, ops.np_)]
+    sizes += ops.np_
+    dwb = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
     KERNEL.call("fused_mlp_bwd", *ops.head(), ctypes.addressof(ops.ptr_wt),
                 ctypes.addressof(ops.ptr_w), ctypes.addressof(ops.ptr_b),
                 ctypes.addressof(ops.c_kp), ctypes.addressof(ops.c_np),
                 len(weights), ops.cin8, ops.d_out, ops.m, g.data_ptr(),
-                dx.data_ptr(), part.data_ptr(), dwb.data_ptr(), nblk,
-                stream_ptr(dev))
-    del part
+                dx.data_ptr(), scratch.data_ptr(), plan["scratch_elems"],
+                part_t.data_ptr(), plan["nblk"], part_dw.data_ptr(),
+                plan["nr"], dwb.data_ptr(), stream_ptr(dev))
+    del scratch, part_t, part_dw
     pieces = torch.split(dwb, sizes)
-    dwts = [pieces[2 * i].view(np_, kp)
+    n = len(ops.kp)
+    dwts = [pieces[i].view(kp, np_).T
             for i, (kp, np_) in enumerate(zip(ops.kp, ops.np_))]
-    dbs = [pieces[2 * i + 1] for i in range(len(ops.kp))]
-    return dx, dwts, dbs
+    return dx, dwts, list(pieces[n:])

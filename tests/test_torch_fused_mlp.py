@@ -26,6 +26,7 @@ import torch
 
 from fgs_nerf_tpu.ops.pallas import fused_mlp_cm as J
 from fgs_nerf_tpu_torch.ops import fused_mlp_cm as T
+from fgs_nerf_tpu_torch.ops.cuda import fused_mlp_cm as K
 
 BS = 256
 SHAPES = {
@@ -211,3 +212,114 @@ def test_deep_net_cotangents_move_with_the_sum_order():
 
     assert dx_share(f64[0].float(), f32[0]) < 0.01
     assert dx_share(no_dz[0], f32[0]) > 0.5
+
+
+# the fine head's nets as B9's wrapper pads them (`_Operands`): rgbnet's
+# seven blocks pad to cin8 136, refnet's two to 312, every width to 16
+_FINE_NETS = {
+    "rgbnet": ((12, 33, 21, 1, 24, 12, 3), [144, 256, 256, 256], [256] * 4),
+    "refnet": ((256, 51), [320, 256, 256, 256], [256, 256, 256, 16]),
+}
+
+
+@pytest.mark.parametrize("name,m,want", [
+    # X 192 wide + 3 H + 4 dz (256 each); 3 + 12 slices; 528 // 15 ranges
+    ("rgbnet", 1_048_576, dict(n_dwl=4, per_sample=1984, slices=15, nr=35,
+                               nblk=132, n_dw=233_472, n_t=1024,
+                               smem_tile=190_592)),
+    # the 16-output last layer's dW stays in the per-tile pass
+    ("refnet", 1_048_576, dict(n_dwl=3, per_sample=1600, slices=13, nr=40,
+                               nblk=132, n_dw=212_992, n_t=256 * 16 + 784,
+                               smem_tile=214_528)),
+    # ragged: 65 tiles of 128, 130 chunks of 64 over 35 ranges
+    ("rgbnet", 8192 + 77, dict(n_dwl=4, per_sample=1984, slices=15, nr=35,
+                               nblk=65, n_dw=233_472, n_t=1024,
+                               smem_tile=190_592)),
+])
+def test_bwd_plan(name, m, want):
+    """B9's scratch and partials plan for the fine head's nets on 132 SMs,
+    and the dW kernel's sample ranges: whole chunks, contiguous, covering
+    the padded samples once."""
+    rows, kp, np_ = _FINE_NETS[name]
+    assert K._pad16(T.pad_plan(rows)[1]) == kp[0]
+    plan = K.bwd_plan(m, kp, np_, 132)
+    mp = -(-m // 128) * 128
+    assert plan["mp"] == mp
+    assert plan["scratch_elems"] == mp * want.pop("per_sample")
+    assert {k: plan[k] for k in want} == want
+    assert plan["smem_tile"] <= K.SMEM_MAX
+    ranges = K.dw_ranges(mp, plan["nr"])
+    assert ranges[0][0] == 0 and ranges[-1][1] == mp
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    sizes = {(e - b) // K.DW_CHUNK for b, e in ranges}
+    assert all(b % K.DW_CHUNK == 0 for b, _ in ranges)
+    assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
+
+
+def _kernel_order_bwd(blocks, weights, biases, g, n_sm, drop_range=False):
+    """B9's function summed in its kernels' order, in f32: dW of the
+    dW-kernel layers over each sample range, then the ranges in order;
+    db (and a 16-output last layer's dW) over each per-tile block's
+    128-sample tiles, then the blocks in order; every dz rounded to bf16
+    before its products.  ``drop_range`` leaves out the second range."""
+    rows = [b.shape[0] for b in blocks]
+    x = T.build_x(blocks)
+    wts, bs = T.pad_weights_t(weights, biases, rows)
+    kp = [K._pad16(x.shape[0])] + [K._pad16(w.shape[0]) for w in weights[1:]]
+    np_ = [K._pad16(w.shape[1]) for w in weights]
+    m = x.shape[1]
+    plan = K.bwd_plan(m, kp, np_, n_sm)
+    ranges = K.dw_ranges(plan["mp"], plan["nr"])
+    if drop_range:
+        ranges = ranges[:1] + ranges[2:]
+    tiles = [(t0, t0 + K.BWD_TILE) for t0 in range(0, plan["mp"], K.BWD_TILE)]
+    per_block = [tiles[b::plan["nblk"]] for b in range(plan["nblk"])]
+    by_range = [[r] for r in ranges]
+
+    def ordered(term, groups):
+        total = 0.0
+        for spans in groups:
+            part = 0.0
+            for a, b in spans:
+                if a < m:
+                    part = part + term(a, min(b, m))
+            total = total + part
+        return total
+
+    w16 = [T.bf16_round(w) for w in wts]
+    n = len(wts)
+    zs, hs, h = [], [x], x
+    for li in range(n):
+        z = w16[li] @ h + bs[li][:, None]
+        zs.append(z)
+        if li < n - 1:
+            h = T.bf16_round(torch.relu(z))
+            hs.append(h)
+    dh = torch.nn.functional.pad(g, (0, 0, 0, wts[-1].shape[0] - g.shape[0]))
+    dwts, dbs = [None] * n, [None] * n
+    for li in range(n - 1, -1, -1):
+        dz = dh if li == n - 1 else dh * (zs[li] > 0)
+        dz16 = T.bf16_round(dz)
+        groups = by_range if li < plan["n_dwl"] else per_block
+        dwts[li] = ordered(lambda a, b: dz16[:, a:b] @ hs[li][:, a:b].T, groups)
+        dbs[li] = ordered(lambda a, b: dz[:, a:b].sum(dim=1), per_block)
+        dh = w16[li].T @ dz16
+    dws, dbs = T.unpad_grads(dwts, dbs, weights, rows)
+    return dh, dws, dbs
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_backward_in_the_kernels_summation_order(name):
+    """B9's partial sums (`bwd_plan`, `dw_ranges`; 5 SMs here, so several
+    ranges and blocks at M 1,024) reassociate the twin's sums only: they
+    agree with it within the card's relative L2 2.5e-3, while a dropped
+    sample range does not."""
+    (blocks, weights, biases, g), _ = _pallas_bwd(name)
+    args = (_t(blocks), _t(weights), _t(biases), torch.as_tensor(g))
+    want = _outputs(T.fused_mlp_cm_bwd_plain(*args))
+    got = _outputs(_kernel_order_bwd(*args, n_sm=5))
+    worst = max(_rel_l2(a.numpy(), b.numpy()) for a, b in zip(got, want))
+    assert worst < 2.5e-3, worst
+    dropped = _outputs(_kernel_order_bwd(*args, n_sm=5, drop_range=True))
+    worst = max(_rel_l2(a.numpy(), b.numpy()) for a, b in zip(dropped, want))
+    assert worst > 2.5e-3, worst

@@ -509,21 +509,27 @@ def test_lattice_step_kernels_match_plain(cuda, stage):
 # more often (refnet 1.49%, rgbnet 0.81% on the H100; 0.40% / 0.34% on
 # the fine step's own inputs, where chip_smoke.py holds them to 1%); the
 # twin with f32 hiddens moves most outputs past 1e-5
-MLP_FLIP_SHARE = {"small": 0.01, "rgbnet": 0.02, "refnet": 0.02}
-MLP_REL_L2 = {"small": 1e-3, "rgbnet": 5e-3, "refnet": 5e-3}
+MLP_FLIP_SHARE = {"small": 0.01, "rgbnet": 0.02, "refnet": 0.02,
+                  "rgbnet-ragged": 0.02}
+MLP_REL_L2 = {"small": 1e-3, "rgbnet": 5e-3, "refnet": 5e-3,
+              "rgbnet-ragged": 5e-3}
 MLP_DX_SHARE = 0.05  # B9 dx entries allowed past 1e-4 of the twin's RMS
 _MLP_SHAPES = {
     "small": ((12, 33, 33, 3, 9), (90, 64, 64, 3)),
     "rgbnet": ((12, 33, 21, 1, 24, 12, 3), (106, 256, 256, 256, 256)),
     "refnet": ((256, 51), (307, 256, 256, 256, 3)),
+    "rgbnet-ragged": ((12, 33, 21, 1, 24, 12, 3), (106, 256, 256, 256, 256)),
 }
+# samples per case (8,192 unless named): the ragged case ends inside a
+# 64-sample chunk, a 128-sample tile and a dW sample range
+_MLP_M = {"rgbnet-ragged": 8192 + 77}
 
 
 @pytest.mark.parametrize("name", sorted(_MLP_SHAPES))
 def test_b8_b9_match_plain(cuda, name):
     rows, dims = _MLP_SHAPES[name]
     gen = torch.Generator(device=cuda).manual_seed(8)
-    m = 8192
+    m = _MLP_M.get(name, 8192)
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=cuda) * scale
@@ -584,7 +590,7 @@ def test_b8_b9_match_plain(cuda, name):
 
     # the autograd op routes to the kernels
     tb = [b.clone().requires_grad_(True) for b in blocks]
-    out = FM.fused_mlp_cm(tb, weights, biases)
+    out = FM.fused_mlp_cm(tb, weights, biases, bs=m)
     (out * g).sum().backward()
     for blk, o, r in zip(tb, FM.pad_plan(rows)[0], rows):
         assert torch.equal(blk.grad, dx[o:o + r])
