@@ -81,7 +81,13 @@ launches) and the whole training pipeline:
     op is B8/B9's path: zero the counts, run, read), hold each kernel
     against its plain twin, repeat, time, bound; beside the kernel, the
     bf16 ``torch.matmul`` chain of ``models/mlp.py:mlp_apply`` on the same
-    inputs (a chain, not one library call).  Controls: the twins with a
+    inputs (a chain, not one library call).  Each B8 record also holds
+    the kernel's own device time (``torch.profiler``, without the
+    wrapper's weight layout), its bytes and operations bounds side by
+    side (both roofs are close), the block's shared memory (the
+    launcher's formula, checked against ``fwd_plan``), its launch plan,
+    the weight bytes its bulk copies move from L2 a call, and ptxas's
+    registers and spills.  Controls: the twins with a
     bf16 rounding left out (hiddens, or each layer's ``dz``) must fail
     the tolerances that the kernels pass.
 14. Pipeline: ``python -m fgs_nerf_tpu_torch.run --mode train`` in process
@@ -598,6 +604,32 @@ def _b9_plan(torch, blocks, ws):
     return plan, smem
 
 
+def _b8_plan(torch, blocks, ws):
+    """B8's launch for one call (``ops/cuda/fused_mlp_cm.py:fwd_plan`` over
+    the wrapper's padded widths) and its block's dynamic shared memory by
+    the launcher's own formula (``fused_mlp_fwd_smem_bytes``)."""
+    import ctypes
+
+    from fgs_nerf_tpu_torch.ops import fused_mlp_cm as FM
+    from fgs_nerf_tpu_torch.ops.cuda import fused_mlp_cm as B89
+
+    rows = [b.shape[0] for b in blocks]
+    kp = ([B89._pad16(FM.pad_plan(rows)[1])]
+          + [B89._pad16(w.shape[0]) for w in ws[1:]])
+    np_ = [B89._pad16(w.shape[1]) for w in ws]
+    props = torch.cuda.get_device_properties(blocks[0].device)
+    plan = B89.fwd_plan(blocks[0].shape[1], kp, np_,
+                        props.multi_processor_count)
+    f = B89.KERNEL.lib().fused_mlp_fwd_smem_bytes
+    f.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    f.restype = ctypes.c_longlong
+    smem = f((ctypes.c_int * len(kp))(*kp), (ctypes.c_int * len(np_))(*np_),
+             len(kp))
+    return plan, smem
+
+
+# B8's kernel: a fragment of its mangled name
+_MLP_FWD_ENTRIES = ("fused_mlp_fwd",)
 # B9's kernels: fragments of their mangled names
 _MLP_BWD_ENTRIES = ("fused_mlp_tile_bwd", "fused_mlp_dw",
                     "mlp_reduce_partials")
@@ -1363,6 +1395,13 @@ def _mlp_phase(torch, np, card, dev, batch, n_rand):
         _check(torch.equal(got, FM.fused_mlp_cm_fwd(blocks, ws, bs)),
                f"B8 {name} is not deterministic")
         bound = _bound(in_bytes + _nbytes(got), 2 * macs, PEAK_BF16_FLOPS)
+        # both roofs: bytes (inputs read once, the output written once) and
+        # operations (the unpadded net's products)
+        roofs = {"bytes": (in_bytes + _nbytes(got)) / PEAK_BYTES_PER_S * 1e3,
+                 "operations": 2 * macs / PEAK_BF16_FLOPS * 1e3}
+        plan8, smem8 = _b8_plan(torch, blocks, ws)
+        _check(smem8 == plan8["smem"] and plan8["stages"] >= 2,
+               f"B8 {name}: shared memory {smem8} vs the wrapper's plan {plan8}")
         # control: hiddens left in f32 must fail the share limit
         ctrl = FM.fused_mlp_cm_fwd_plain(blocks, ws, bs, round_hidden=False)
         ctrl_share = float(((ctrl - want).abs() > 1e-5).float().mean())
@@ -1380,7 +1419,18 @@ def _mlp_phase(torch, np, card, dev, batch, n_rand):
                  plain_ms=_time_ms(
                      lambda: FM.fused_mlp_cm_fwd_plain(blocks, ws, bs), 2,
                      torch),
-                 bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+                 # the kernel alone, without the wrapper's weight layout
+                 kernel_ms=_kernel_ms(
+                     torch, lambda: FM.fused_mlp_cm_fwd(blocks, ws, bs),
+                     _MLP_FWD_ENTRIES)["fused_mlp_fwd"],
+                 bound_ms=bound[0], bound_by=bound[1],
+                 bound_bytes_ms=roofs["bytes"],
+                 bound_operations_ms=roofs["operations"], library_ms=None,
+                 dynamic_smem_bytes=smem8,
+                 plan={k: plan8[k] for k in ("tile", "grid", "stages",
+                                             "chunks")},
+                 l2_weight_bytes=plan8["l2_weight_bytes"],
+                 ptxas=_ptxas(B89.KERNEL, _MLP_FWD_ENTRIES),
                  matmul_chain_ms=_time_ms(
                      lambda: MLP.mlp_apply(mp, x_cl, bf16=True), 3, torch))
         del x_cl
@@ -2199,6 +2249,10 @@ def main():
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None,
             "matmul_chain_ms": main.get("matmul_chain_ms"),
+            **({k: main[k] for k in (
+                "kernel_ms", "bound_bytes_ms", "bound_operations_ms",
+                "dynamic_smem_bytes", "plan", "l2_weight_bytes", "ptxas")}
+               if name == "fused_mlp_fwd" else {}),
             **({"kernels_ms": main["kernels_ms"],
                 "scratch_bytes": main["scratch_bytes"],
                 "dynamic_smem_bytes": main["dynamic_smem_bytes"],

@@ -14,19 +14,88 @@
 // padded to multiples of 16 by the caller with zero weights and biases
 // (zero rows stay zero through relu).
 //
-// Bound on an H100 (989 TFLOP/s bf16, 3.35 TB/s): operations.  At the
-// fine shading head's shapes (M = 1,048,576) the rgbnet forward is
-// 2 x (106 x 256 + 3 x 256 x 256) ~ 0.45 MFLOP per sample, 469 GFLOP,
-// >= 0.47 ms; the backward (hiddens recomputed, a dW and a dh product per
-// layer) 1.27 TFLOP, >= 1.28 ms (refnet 1.32 TFLOP, >= 1.34 ms).
+// Bounds on an H100 (989 TFLOP/s bf16, 3.35 TB/s), at the fine shading
+// head's shapes (M = 1,048,576).  The rgbnet forward is 2 x (106 x 256 +
+// 3 x 256 x 256) ~ 0.45 MFLOP a sample, 469 GFLOP, >= 0.474 ms of
+// operations, and it moves 445 MB of fp32 input rows and 1,074 MB of fp32
+// output, >= 0.453 ms of bytes; the refnet forward 0.446 ms of operations,
+// 0.388 ms of bytes (1,288 MB in).  Both roofs are close, so B8 has to run
+// its memory traffic under its products: done one after the other, the
+// two take >= 0.93 / 0.83 ms.  The backward (hiddens recomputed, a dW and
+// a dh product per layer) 1.27 TFLOP, >= 1.28 ms (refnet 1.32 TFLOP,
+// >= 1.34 ms).
 //
-// B8 (fused_mlp_fwd_kernel), the first cut: a block owns a tile of 64
-// samples and keeps the tile's input and hidden activations in shared
-// memory as bf16 [sample][feature] rows.  Every product runs on the
-// tensor cores through mma.sync m16n8k16 (bf16 in, fp32 accumulate) with
-// the 64 samples as M and each warp owning a set of 8-wide output column
-// tiles.  Its B fragments are read straight from device memory, where the
-// whole net (< 1 MB of bf16) stays in L2.
+// B8 (fused_mlp_fwd_kernel): one persistent block an SM (grid = min(SMs,
+// tiles)) walks 128-sample tiles with a producer warpgroup and two
+// consumer warpgroups, each owning 64 of the tile's samples
+// (setmaxnreg: 40 registers a producer thread, 232 a consumer thread).
+// The products take the samples as M: D[64 samples x outputs] = X[64 x k]
+// W[k x outputs] by wgmma (m64nNk16, N = the layer's outputs rounded up to
+// 16, 32, 64, 128 or 256), both operands K-major in shared memory in the
+// 32-byte swizzle layout: rows of 16 inputs (32 B) whose two 16-byte
+// halves swap on rows 4-7 of every 8.  The weights come in that layout
+// from the wrapper (16-input slabs [kp/16][np][16]); X and H are kept so
+// ([k/16][128 samples][16]).  What the design does about the three
+// limits of PR 4's first cut (64-sample tiles, B fragments read from L2
+// by 4-byte loads, nothing overlapped):
+//
+// - Each weight byte serves 128 samples.  A chunk is at most 16 KB of a
+//   layer's consecutive slabs (32 inputs of a 256-wide layer, the whole
+//   256 x 16 last layer of the refnet); one producer thread copies every
+//   tile's chunks in order, one bulk copy each (cp.async.bulk, the TMA
+//   engine), into a ring of 2-7 stages, completing on an mbarrier, and
+//   reuses a stage when both consumer warpgroups have released it on a
+//   second mbarrier.  L2 -> shared weight bytes a call: tiles x the
+//   padded net, 8,192 x 466,944 B = 3.83 GB (rgbnet) and 8,192 x 434,176
+//   B = 3.56 GB (refnet), against ~7.6 / 7.1 GB of 4-byte fragment loads
+//   in PR 4's kernel.  No padding byte crosses L2.
+// - Memory runs beside the products.  A consumer warpgroup commits a
+//   chunk's wgmmas and waits only for the chunk before (releasing its
+//   stage).  The next tile's fp32 input rows load during the chunks of
+//   layers 1 .. L-1 (layer 0 no longer reads X): at each chunk a warp
+//   copies one unit (8 rows x 32 samples, 128 contiguous bytes a row) by
+//   cp.async into a 1 KB staging slot (two a warp, 16 KB in all) and, one
+//   chunk later, writes the unit before it to X as bf16 with stmatrix
+//   .trans, which transposes it into X's layout without bank conflicts.
+//   No register waits on the copies: loaded into registers instead, they
+//   held up the fences that ptxas puts before each wgmma and cost ~0.6 ms
+//   a call.  Units past those chunks (a one-layer net, 3 of 20 a warp at
+//   the refnet) load at the tile's end.  The last layer's sums plus bias are
+//   staged as fp32 rows of 64 samples in the warpgroup's half of H (free
+//   once its products are done) and leave by bulk stores, 256 B a row,
+//   which the TMA engine drains while the warpgroup starts the next tile
+//   (a ragged tile, or M not a multiple of 4, stores from the registers
+//   instead).  The warpgroups meet only on the ring: their barriers are
+//   their own (named barriers: one a tile for X, two a hidden layer for
+//   the in-place H, two a pass of the staged output).
+// - The tensor cores: wgmma, both operands read from shared memory by the
+//   tensor cores (no ldmatrix, no fragment registers), fp32 sums in
+//   registers (128 a consumer thread).  ptxas serializes the wgmmas
+//   (C7520: a fence it adds sits on a path it cannot prove uniform);
+//   broadcasting the warp index from lane 0 lifts that but spills and
+//   doubles the kernel's waits-and-epilogues skeleton, so the kernel
+//   keeps threadIdx-derived indices.  Why wgmma and not mma.sync: the
+//   same design on mma.sync with ldmatrix fragments (16 warps of 64
+//   features x 32 samples) took 1.9 ms without any product, its fragment
+//   loads and their address arithmetic issuing ~60 instructions a warp
+//   for every 16-input slab; wgmma issues one (PERF.md, PR 12).
+//
+// What sets the pace (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md, PR 12):
+// the kernel takes 2.25 / 1.96 ms at the fine rgbnet / refnet (21% / 23%
+// of the bound), the wrapper's weight layout 0.46 / 0.57 ms more a call.
+// The skeleton of waits, barriers and epilogues alone takes ~1.2 ms, the
+// serialized products add ~0.5-0.65 ms, the input copies and output
+// stores ~0.1-0.25 ms.
+//
+// Shared memory of a B8 block (limit 232,448 B): 1,024 B to align, 1,024
+// B of mbarriers, the ring stages x 16,384 B (as many as fit, at most 7),
+// the input staging 16,384 B, X kp0 x 256 B, H (the widest hidden layer)
+// x 256 B and an input row table of 8 B a row of kp0.  Fine rgbnet (kp0
+// 144): 2,048 + 6 x 16,384 + 16,384 + 36,864 + 65,536 + 1,152 = 220,288 B;
+// fine refnet (kp0 320): 2,048 + 3 x 16,384 + 16,384 + 81,920 + 65,536 +
+// 2,560 = 217,600 B.  kp0 is at most 432 beside 256-wide hidden layers
+// (two stages), 560 beside 128-wide ones.  Output widths past 256 are
+// refused, as for B9.
 //
 // B9 is three kernels, after B4's pattern (fused_shade_cm.cu):
 //
@@ -94,12 +163,12 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "mma_bf16.cuh"  // mma16816, pack2, ldmatrix fragments, cp.async
 
 typedef __nv_bfloat16 bf16;
 
-#define TS 64          // samples per tile
-#define NTHREADS 256   // 8 warps
 #define MAXB 16        // feature blocks
 #define MAXL 8         // layers
 #define SMEM_MAX 232448
@@ -119,192 +188,6 @@ struct MlpArgs {
   int d_out;              // real outputs of the last layer (<= np[L-1])
   long long M;
 };
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ldg32(const bf16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-// A fragment (16 x 16) of a row-major shared [m][k] array at (m0, k0).
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* A,
-                                       int sa, int m0, int k0, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* p0 = A + (m0 + g) * sa + k0 + t * 2;
-  const bf16* p1 = p0 + 8 * sa;
-  a[0] = ld32(p0);
-  a[1] = ld32(p1);
-  a[2] = ld32(p0 + 8);
-  a[3] = ld32(p1 + 8);
-}
-
-// A fragment of the transpose of a row-major shared [k][m] array.
-__device__ __forceinline__ void load_a_t(uint32_t (&a)[4], const bf16* S,
-                                         int ss, int m0, int k0, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const int r = k0 + t * 2, c = m0 + g;
-  a[0] = pack2(S[r * ss + c], S[(r + 1) * ss + c]);
-  a[1] = pack2(S[r * ss + c + 8], S[(r + 1) * ss + c + 8]);
-  a[2] = pack2(S[(r + 8) * ss + c], S[(r + 9) * ss + c]);
-  a[3] = pack2(S[(r + 8) * ss + c + 8], S[(r + 9) * ss + c + 8]);
-}
-
-// C[64][N] = A[64][K] (shared, row-major) x B[K][N]; B's fragment for
-// column tile n0 at k-step k0 comes from bload(n0, k0, b0, b1), a row of
-// a k-contiguous array in device memory.  Each warp owns column tiles
-// warp + 8j of each pass of 32 tiles; epi(n0, acc) gets the warp's
-// [m-tile][4] accumulators of one column tile (rows mt*16 + g (+8),
-// columns n0 + 2t (+1)).
-template <class BL, class EP>
-__device__ __forceinline__ void gemm_rows(const bf16* A, int sa, int K, int N,
-                                          BL bload, EP epi) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ntiles = N >> 3;
-  for (int base = 0; base < ntiles; base += 32) {
-    float acc[4][4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][mt][e] = 0.0f;
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) load_a(a[mt], A, sa, mt * 16, k0, lane);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int nt = base + warp + 8 * j;
-        if (nt < ntiles) {
-          uint32_t b0, b1;
-          bload(nt * 8, k0, b0, b1);
-#pragma unroll
-          for (int mt = 0; mt < 4; ++mt) mma16816(acc[j][mt], a[mt], b0, b1);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int nt = base + warp + 8 * j;
-      if (nt < ntiles) epi(nt * 8, acc[j]);
-    }
-  }
-}
-
-// x tile: X[s][c] = bf16(block value), zero in pad rows and past M.
-// Ends with a barrier.
-__device__ void build_x(const MlpArgs& a, long long s0, bf16* X, int sx) {
-  for (int e = threadIdx.x; e < TS * sx / 2; e += NTHREADS)
-    reinterpret_cast<uint32_t*>(X)[e] = 0u;
-  __syncthreads();
-  for (int bi = 0; bi < a.n_blocks; ++bi) {
-    const float* src = a.blk[bi];
-    const int rows = a.blk_rows[bi], off = a.blk_off[bi];
-    for (int e = threadIdx.x; e < rows * TS; e += NTHREADS) {
-      const int r = e / TS, s = e - r * TS;
-      const long long gs = s0 + s;
-      const float v = gs < a.M ? __ldg(src + (long long)r * a.M + gs) : 0.0f;
-      X[s * sx + off + r] = __float2bfloat16_rn(v);
-    }
-  }
-  __syncthreads();
-}
-
-// Layers 0 .. n_hidden-1 of the tile: Hs[l] = bf16(relu(W^T Hin + b)).
-__device__ void forward_hidden(const MlpArgs& a, const bf16* X, int sx,
-                               bf16* const* Hs, const int* sh, int n_hidden) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const bf16* hin = X;
-  int sin = sx;
-  for (int l = 0; l < n_hidden; ++l) {
-    const bf16* wt = a.wt[l];
-    const float* bias = a.b[l];
-    const int kp = a.kp[l];
-    bf16* hout = Hs[l];
-    const int so = sh[l];
-    gemm_rows(
-        hin, sin, kp, a.np[l],
-        [&](int n0, int k0, uint32_t& b0, uint32_t& b1) {
-          const bf16* p = wt + (long long)(n0 + g) * kp + k0 + t * 2;
-          b0 = ldg32(p);
-          b1 = ldg32(p + 8);
-        },
-        [&](int n0, float (&acc)[4][4]) {
-          const int n = n0 + t * 2;
-          const float b0 = __ldg(bias + n), b1 = __ldg(bias + n + 1);
-#pragma unroll
-          for (int mt = 0; mt < 4; ++mt) {
-            const int s = mt * 16 + g;
-            *reinterpret_cast<uint32_t*>(hout + s * so + n) = pack2(
-                __float2bfloat16_rn(fmaxf(acc[mt][0] + b0, 0.0f)),
-                __float2bfloat16_rn(fmaxf(acc[mt][1] + b1, 0.0f)));
-            *reinterpret_cast<uint32_t*>(hout + (s + 8) * so + n) = pack2(
-                __float2bfloat16_rn(fmaxf(acc[mt][2] + b0, 0.0f)),
-                __float2bfloat16_rn(fmaxf(acc[mt][3] + b1, 0.0f)));
-          }
-        });
-    __syncthreads();
-    hin = hout;
-    sin = so;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// B8: forward, one 64-sample tile per block
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(NTHREADS)
-fused_mlp_fwd_kernel(MlpArgs a, float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char mlp_smem[];
-  const int L = a.n_layers;
-  int hmax = 0;
-  for (int l = 0; l < L - 1; ++l) hmax = max(hmax, a.np[l]);
-  const int sx = a.kp[0] + 8, shh = hmax + 8;
-  bf16* X = reinterpret_cast<bf16*>(mlp_smem);
-  bf16* H0 = X + TS * sx;
-  bf16* H1 = H0 + TS * shh;
-  const long long s0 = (long long)blockIdx.x * TS;
-  build_x(a, s0, X, sx);
-
-  // hidden layers ping-pong between H0 and H1
-  bf16* Hs[MAXL];
-  int sh[MAXL];
-  for (int l = 0; l < L - 1; ++l) {
-    Hs[l] = (l & 1) ? H1 : H0;
-    sh[l] = shh;
-  }
-  forward_hidden(a, X, sx, Hs, sh, L - 1);
-
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const bf16* hin = L > 1 ? Hs[L - 2] : X;
-  const int sin = L > 1 ? shh : sx;
-  const bf16* wt = a.wt[L - 1];
-  const float* bias = a.b[L - 1];
-  const int kp = a.kp[L - 1];
-  gemm_rows(
-      hin, sin, kp, a.np[L - 1],
-      [&](int n0, int k0, uint32_t& b0, uint32_t& b1) {
-        const bf16* p = wt + (long long)(n0 + g) * kp + k0 + t * 2;
-        b0 = ldg32(p);
-        b1 = ldg32(p + 8);
-      },
-      [&](int n0, float (&acc)[4][4]) {
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int n = n0 + t * 2 + c;
-          if (n >= a.d_out) continue;
-          const float bn = __ldg(bias + n);
-#pragma unroll
-          for (int mt = 0; mt < 4; ++mt) {
-            const long long gs = s0 + mt * 16 + g;
-            if (gs < a.M) out[(long long)n * a.M + gs] = acc[mt][c] + bn;
-            if (gs + 8 < a.M) out[(long long)n * a.M + gs + 8] = acc[mt][2 + c] + bn;
-          }
-        }
-      });
-}
 
 // ---------------------------------------------------------------------------
 // B9: backward (per-tile pass, split-K dW kernel, fixed-order sums)
@@ -887,6 +770,606 @@ __global__ void mlp_reduce_partials_kernel(const float* __restrict__ part,
 }
 
 // ---------------------------------------------------------------------------
+// B8: forward; persistent blocks, two consumer warpgroups (wgmma) on
+// 128-sample tiles and a producer warp that streams each layer's weights
+// once per tile by bulk copies
+// ---------------------------------------------------------------------------
+
+#define FT 128               // samples per tile
+#define FGS 64               // samples of a consumer warpgroup (half the tile)
+#define FGT 128              // threads of a consumer warpgroup
+#define FNT (3 * FGT)        // threads: a producer and two consumer warpgroups
+#define FRS 2                // staging slots a warp for its input units
+#define FRAW (2 * FGT / 32 * FRS * 1024)  // bytes of the input staging
+#define FACC 128             // fp32 accumulators a thread: 64 x 256 / 128
+#define FSTAGE (32 * NPASS)  // bf16 elements of a ring stage (16,384 B)
+#define FSLAB (FT * 16)      // bf16 elements of an X / H slab: 16 features
+#define FST_MAX 7            // most ring stages
+#define FMAXQ 96             // most weight chunks a tile
+#define FALIGN 1024          // alignment of the ring, X and H (the swizzle)
+#define FBAR 1024            // bytes for the mbarriers, before the ring
+
+// The launcher's plan.  A tile's weight chunks, in order: layer l in
+// chunks of kc[l] inputs (whole 16-input slabs, at most FSTAGE elements),
+// chunk i copied from q_src[i] (q_bytes[i] bytes, contiguous).
+struct FwdPlan {
+  const bf16* q_src[FMAXQ];
+  int q_bytes[FMAXQ];
+  int kc[MAXL];
+  int nq;         // chunks a tile
+  int nst;        // ring stages
+  int hmax;       // rows of H: the widest hidden layer (0 for one layer)
+  int vec;        // M % 4 == 0 and 16-byte aligned rows: 16-byte loads/stores
+  long long ntiles;
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.  The
+// loop lives inside the asm, so the compiler sees no divergent branch
+// before the wgmmas that follow.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      "WAIT:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One bulk copy (the TMA engine) of `bytes` contiguous bytes into shared
+// memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// One bulk copy (the TMA engine) of `bytes` contiguous bytes from shared
+// to device memory, in this thread's current bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+                   dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until this thread's bulk stores have read their shared memory
+// (READ) or completed.
+template <bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (READ) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Barrier of one consumer warpgroup's 128 threads (named barriers 1, 2).
+__device__ __forceinline__ void group_sync(int grp) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(grp + 1), "n"(FGT) : "memory");
+}
+
+// Make this thread's shared-memory stores visible to wgmma's reads.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int n>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(n) : "memory");
+}
+
+// wgmma descriptor of a K-major bf16 operand in shared memory laid out
+// with the 32-byte swizzle: rows of 16 inputs (32 B) whose two 16-byte
+// halves swap on rows 4-7 of every 8, 8-row groups 256 B apart (stride
+// byte offset), layout type 3.  `p` lies on a 256-byte boundary of the
+// swizzle pattern (the ring, X and H start on 1,024-byte boundaries).
+__device__ __forceinline__ uint64_t desc_sw32(const void* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(256 >> 4) << 32) | (3ull << 62);
+}
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N]: A and B K-major in shared memory,
+// fp32 sums in the wgmma fragment layout (warp w of the warpgroup holds
+// rows 16 w + g and + 8, columns 8 i + 2 t and + 1 in d[4 i .. 4 i + 3]).
+__device__ __forceinline__ void wgmma_n16(float (&d)[FACC], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n32(float (&d)[FACC], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n64(float (&d)[FACC], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n128(float (&d)[FACC], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n256(float (&d)[FACC], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
+      "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Pin the accumulators in their registers around a run of wgmmas, so the
+// compiler moves none of them while the products are in flight.
+__device__ __forceinline__ void fence_acc(float (&d)[FACC]) {
+#pragma unroll
+  for (int i = 0; i < FACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_n(float (&d)[FACC], uint64_t da,
+                                        uint64_t db, int scale_d) {
+  if constexpr (N == 256) wgmma_n256(d, da, db, scale_d);
+  else if constexpr (N == 128) wgmma_n128(d, da, db, scale_d);
+  else if constexpr (N == 64) wgmma_n64(d, da, db, scale_d);
+  else if constexpr (N == 32) wgmma_n32(d, da, db, scale_d);
+  else wgmma_n16(d, da, db, scale_d);
+}
+
+// Copy 4 bytes to shared memory without registers (cp.async), filling
+// zeros when n == 0 (no row, or a sample past M).
+__device__ __forceinline__ void cp_async4z(void* dst, const void* src, uint32_t n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+// Store four 8 x 8 bf16 matrices transposed (stmatrix .trans): lane 8 m +
+// j gives the address of memory row j of matrix m, which receives column
+// j of the matrix whose rows the lanes hold as in an mma fragment.
+__device__ __forceinline__ void stsm_x4_t(void* p, const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+          smem_addr(p)),
+      "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
+}
+
+// Input unit i of a warp: X rows 8 o .. 8 o + 7 (an octet) at 32 of its
+// group's samples.  Lane (g, t) copies row 8 o + g at samples 8 m + 2 t,
+// + 1 (m = 0 .. 3) into its 32 B of a staging slot (cp.async: 8 rows of
+// 128 contiguous bytes a unit, no register waits on them); stmatrix
+// .trans then writes the unit to X's slab layout, 16 B (8 features) a
+// sample.
+__device__ __forceinline__ void store_unit(bf16* X, int o, int r0, int lane,
+                                           const float* v) {
+  const float4 a = *reinterpret_cast<const float4*>(v);
+  const float4 b = *reinterpret_cast<const float4*>(v + 4);
+  const uint32_t w[4] = {pack2(__float2bfloat16_rn(a.x), __float2bfloat16_rn(a.y)),
+                         pack2(__float2bfloat16_rn(a.z), __float2bfloat16_rn(a.w)),
+                         pack2(__float2bfloat16_rn(b.x), __float2bfloat16_rn(b.y)),
+                         pack2(__float2bfloat16_rn(b.z), __float2bfloat16_rn(b.w))};
+  const int r = r0 + lane;  // memory row: sample r0 + 8 (lane / 8) + lane % 8
+  stsm_x4_t(X + (o >> 1) * FSLAB + r * 16 + ((((o & 1) ^ ((r >> 2) & 1))) << 3), w);
+}
+
+// out[s .. s + 3] = v (samples past M left out).
+__device__ __forceinline__ void store_out4(float* row, long long s, long long M,
+                                           int vec, float4 v) {
+  if (vec && s + 3 < M) {
+    __stcs(reinterpret_cast<float4*>(row + s), v);
+    return;
+  }
+  if (s < M) __stcs(row + s, v.x);
+  if (s + 1 < M) __stcs(row + s + 1, v.y);
+  if (s + 2 < M) __stcs(row + s + 2, v.z);
+  if (s + 3 < M) __stcs(row + s + 3, v.w);
+}
+
+// Block b takes tiles b, b + gridDim.x, ...  Thread 0 (the producer
+// warpgroup) copies every tile's weight chunks, in order, into the ring.
+// Consumer warpgroup grp owns the tile's samples grp * 64 .. + 63; for
+// each chunk of a layer it issues one wgmma a 16-input slab (M = its 64
+// samples, N = the layer's outputs rounded up to 16, 32, 64, 128 or 256:
+// the columns past them are never read), then writes the hidden layer
+// back over H in place, or stores the last layer's sums plus bias.  Its
+// warp's input unit i (kp0 / 16 of them a tile) is the octet of X rows
+// u / 2 * 8 .. + 7 at 32 of its samples, u = 4 i + the warp's index in
+// the warpgroup.
+__global__ void __launch_bounds__(FNT, 1)
+fused_mlp_fwd_kernel(MlpArgs a, const __grid_constant__ FwdPlan p,
+                     float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char mlp_smem[];
+  unsigned char* base = mlp_smem + ((FALIGN - (smem_addr(mlp_smem) & (FALIGN - 1))) &
+                                    (FALIGN - 1));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base);  // [FST_MAX]
+  uint64_t* empty = full + FST_MAX;                     // [FST_MAX]
+  bf16* ring = reinterpret_cast<bf16*>(base + FBAR);    // nst x FSTAGE
+  float* RAW = reinterpret_cast<float*>(ring + p.nst * FSTAGE);  // FRAW B
+  bf16* X = reinterpret_cast<bf16*>(RAW) + FRAW / 2;    // kp0 / 16 slabs
+  bf16* H = X + (a.kp[0] >> 4) * FSLAB;                 // hmax / 16 slabs
+  const float** XR = reinterpret_cast<const float**>(H + (p.hmax >> 4) * FSLAB);
+
+  const int L = a.n_layers, kp0 = a.kp[0], tid = threadIdx.x;
+  // the warp's index broadcast from lane 0, so that the compiler knows
+  // the role branch is uniform in the warp (the consumers index their
+  // work from threadIdx: the header says why)
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0), lane = tid & 31;
+  const long long M = a.M;
+  const long long my_tiles =
+      blockIdx.x < p.ntiles ? (p.ntiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < p.nst; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 2 * FGT / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int e = tid; e < kp0 * FT / 2; e += FNT)
+    reinterpret_cast<uint32_t*>(X)[e] = 0u;  // pad rows stay zero
+  for (int c = tid; c < kp0; c += FNT) {
+    const float* r = nullptr;
+    for (int bi = 0; bi < a.n_blocks; ++bi)
+      if (c >= a.blk_off[bi] && c < a.blk_off[bi] + a.blk_rows[bi])
+        r = a.blk[bi] + (long long)(c - a.blk_off[bi]) * M;
+    XR[c] = r;
+  }
+  __syncthreads();
+
+  if (warp < FGT / 32) {  // the producer warpgroup: one lane copies
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 0) {
+      const long long nchunks = my_tiles * p.nq;
+      int st = 0, c = 0;
+      uint32_t use = 0;  // rounds of the ring so far
+      for (long long qi = 0; qi < nchunks; ++qi) {
+        if (use > 0) mbar_wait(empty + st, (use - 1) & 1u);
+        mbar_expect_tx(full + st, (uint32_t)p.q_bytes[c]);
+        bulk_load(ring + st * FSTAGE, p.q_src[c], (uint32_t)p.q_bytes[c], full + st);
+        if (++c == p.nq) c = 0;
+        if (++st == p.nst) {
+          st = 0;
+          ++use;
+        }
+      }
+    }
+  } else {  // the two consumer warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+
+    const int cw = tid >> 5;  // this warp, from threadIdx
+    const int grp = (cw >> 2) - 1, tg = tid & (FGT - 1);
+    const int g = lane >> 2, t = lane & 3;
+    const int row0 = grp * FGS + (cw & 3) * 16 + g;  // the thread's D rows: + 0, + 8
+    const int upt = kp0 >> 4;                          // input units a warp, a tile
+    int S = 0;  // chunks of layers 1 .. L-1: the steps that prefetch X
+    for (int l = 1; l < L; ++l) S += (a.kp[l] + p.kc[l] - 1) / p.kc[l];
+
+    // unit i of this warp: octet o, tile samples r0 .. r0 + 31
+    const int wq = cw & 3;
+    auto unit = [&](int i, int& o, int& r0) {
+      const int u = i * 4 + wq;
+      o = u >> 1;
+      r0 = grp * FGS + (u & 1) * 32;
+    };
+    auto live = [&](int o) {  // an octet with a real input row
+      bool any = false;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) any |= XR[8 * o + j] != nullptr;
+      return any;
+    };
+    float* raw = RAW + (grp * 4 + wq) * FRS * 256 + lane * 8;  // slot 0
+    auto issue = [&](int i, long long s0, int sl) {  // one cp.async group
+      int o, r0;
+      unit(i, o, r0);
+      const float* row = XR[8 * o + g];
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const long long s = s0 + r0 + 8 * m + 2 * t + e;
+          const bool ok = row != nullptr && s < M;
+          cp_async4z(raw + sl * 256 + 2 * m + e, ok ? row + s : a.blk[0], ok ? 4u : 0u);
+        }
+    };
+    auto put = [&](int i, int sl) {
+      int o, r0;
+      unit(i, o, r0);
+      if (live(o)) store_unit(X, o, r0, lane, raw + sl * 256);
+    };
+    auto fill = [&](int i, long long s0) {  // copy and store unit i now
+      issue(i, s0, 0);
+      cp_async_commit();
+      cp_async_wait<0>();
+      put(i, 0);
+    };
+    if (my_tiles > 0)
+      for (int i = 0; i < upt; ++i) fill(i, (long long)blockIdx.x * FT);
+    fence_async_smem();
+
+    float acc[FACC];
+    int st = 0;
+    uint32_t ph = 0;  // stage and phase parity of the chunk being consumed
+    for (long long tile = blockIdx.x; tile < p.ntiles; tile += gridDim.x) {
+      const long long s0 = tile * FT, s1 = s0 + (long long)gridDim.x * FT;
+      const bool has_next = s1 < M;
+      group_sync(grp);  // X holds this tile's inputs; the group is done with H
+      int k = 0;        // prefetch step
+      for (int l = 0; l < L; ++l) {
+        const bf16* A = (l == 0 ? X : H) + grp * FGS * 16;  // the group's rows
+        const int kp = a.kp[l], np = a.np[l], kc = p.kc[l];
+        // the layer's products, chunk by chunk, with one wgmma shape (N =
+        // np rounded up to 16, 32, 64, 128 or 256: columns past np unused)
+        auto products = [&](auto n_tag) {
+          constexpr int N = decltype(n_tag)::value;
+          int pend = -1;  // the stage of the chunk whose products are in flight
+#pragma unroll
+          for (int i = 0; i < FACC; ++i) acc[i] = 0.0f;
+          fence_acc(acc);
+          wgmma_fence();  // only wgmmas touch acc until the layer's last wait
+          for (int k0 = 0; k0 < kp; k0 += kc) {
+            mbar_wait(full + st, ph);
+            if (l > 0) {
+              if (has_next) {  // copy unit k; store the one copied FRS - 1 steps ago
+                if (k < upt) issue(k, s1, k % FRS);
+                cp_async_commit();
+                cp_async_wait<FRS - 1>();
+                const int kd = k - (FRS - 1);
+                if (kd >= 0 && kd < upt) put(kd, kd % FRS);
+              }
+              ++k;
+            }
+            const bf16* ws = ring + st * FSTAGE;
+            const int nslab = min(kc, kp - k0) >> 4;
+            for (int j = 0; j < nslab; ++j) {
+              const uint64_t da = desc_sw32(A + ((k0 >> 4) + j) * FSLAB);
+              const uint64_t db = desc_sw32(ws + j * np * 16);
+              const int sd = k0 + j > 0;
+              wgmma_n<N>(acc, da, db, sd);
+            }
+            wgmma_commit();
+            wgmma_wait<1>();  // the previous chunk's products are done
+            if (pend >= 0 && lane == 0) mbar_arrive(empty + pend);
+            pend = st;
+            if (++st == p.nst) {
+              st = 0;
+              ph ^= 1u;
+            }
+          }
+          wgmma_wait<0>();
+          fence_acc(acc);
+          if (lane == 0) mbar_arrive(empty + pend);
+        };
+        if (np > 128) products(std::integral_constant<int, 256>{});
+        else if (np > 64) products(std::integral_constant<int, 128>{});
+        else if (np > 32) products(std::integral_constant<int, 64>{});
+        else if (np > 16) products(std::integral_constant<int, 32>{});
+        else products(std::integral_constant<int, 16>{});
+        const float* bias = a.b[l];
+        if (l < L - 1) {
+          bulk_wait<true>();  // the last tile's output stores have read H
+          group_sync(grp);  // every warp's products of this layer are done
+#pragma unroll
+          for (int i = 0; i < FACC / 4; ++i) {
+            if (8 * i >= np) continue;  // uniform
+            const int f = 8 * i + 2 * t;
+            const float b0 = __ldg(bias + f), b1 = __ldg(bias + f + 1);
+            bf16* slab = H + (f >> 4) * FSLAB + (f & 7);
+            const int hf = (f >> 3) & 1;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = row0 + 8 * h;
+              *reinterpret_cast<uint32_t*>(slab + r * 16 + ((hf ^ ((r >> 2) & 1)) << 3)) =
+                  pack2(__float2bfloat16_rn(fmaxf(acc[4 * i + 2 * h] + b0, 0.0f)),
+                        __float2bfloat16_rn(fmaxf(acc[4 * i + 2 * h + 1] + b1, 0.0f)));
+            }
+          }
+          fence_async_smem();
+          group_sync(grp);  // H holds layer l + 1's input
+        } else if (p.vec && p.hmax >= 16 && s0 + (grp + 1) * FGS <= M) {
+          // the group's 64 rows of each H slab (2 KB) hold 8 output rows of
+          // its 64 samples in fp32; as many rows as H gives a pass, each row
+          // then written by one thread's bulk store of 256 B
+          const int rows = p.hmax >> 1;
+          unsigned char* stage = reinterpret_cast<unsigned char*>(H) + grp * FGS * 32;
+          for (int base = 0; base < np; base += rows) {
+            bulk_wait<true>();  // the pass before has been read
+            group_sync(grp);    // and the group is done with H
+#pragma unroll
+            for (int i = 0; i < FACC / 4; ++i) {
+              const int f = 8 * i + 2 * t;
+              if (8 * i >= np || 8 * i < base || 8 * i >= base + rows) continue;  // uniform
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                const float bn = f + c < a.d_out ? __ldg(bias + f + c) : 0.0f;
+                const int r = f + c - base;
+                float* row = reinterpret_cast<float*>(stage + (r >> 3) * (FSLAB * 2) + (r & 7) * 256);
+                row[row0 - grp * FGS] = acc[4 * i + c] + bn;
+                row[row0 - grp * FGS + 8] = acc[4 * i + 2 + c] + bn;
+              }
+            }
+            fence_async_smem();
+            group_sync(grp);  // the pass is staged
+            if (tg < rows && base + tg < a.d_out)
+              bulk_store(out + (long long)(base + tg) * M + s0 + grp * FGS,
+                         stage + (tg >> 3) * (FSLAB * 2) + (tg & 7) * 256, FGS * 4);
+            bulk_commit();
+          }
+        } else {
+          // lanes 4 g + t, g = 4 a + b: a 4 x 4 transpose over b (lane bits
+          // 2, 3) leaves lane b with samples 4 a .. + 3 (+ 8 (b / 2)) of
+          // feature 8 i + 2 t + b % 2
+          const int b0s = (g & 1), b1s = (g >> 1) & 1;
+          const int c = g & 1, hh = (g >> 1) & 1;
+#pragma unroll
+          for (int i = 0; i < FACC / 4; ++i) {
+            if (8 * i >= np) continue;  // uniform
+            const int f = 8 * i + 2 * t;
+            const float bf0 = f < a.d_out ? __ldg(bias + f) : 0.0f;
+            const float bf1 = f + 1 < a.d_out ? __ldg(bias + f + 1) : 0.0f;
+            float r[4] = {acc[4 * i] + bf0, acc[4 * i + 1] + bf1,
+                          acc[4 * i + 2] + bf0, acc[4 * i + 3] + bf1};
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float y = __shfl_xor_sync(0xffffffffu, b1s ? r[e] : r[2 + e], 8);
+              if (b1s) r[e] = y;
+              else r[2 + e] = y;
+            }
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float y = __shfl_xor_sync(0xffffffffu, b0s ? r[2 * e] : r[2 * e + 1], 4);
+              if (b0s) r[2 * e] = y;
+              else r[2 * e + 1] = y;
+            }
+            const int fo = f + c;
+            if (fo < a.d_out)
+              store_out4(out + (long long)fo * M,
+                         s0 + grp * FGS + (cw & 3) * 16 + 4 * (g >> 2) + 8 * hh, M,
+                         p.vec, make_float4(r[0], r[1], r[2], r[3]));
+          }
+        }
+      }
+      if (has_next) {  // the rest of the next tile's X
+        // the units copied at steps S - FRS + 1 .. S - 1 are still staged
+        cp_async_wait<0>();
+        for (int kk = max(S - (FRS - 1), 0); kk < min(S, upt); ++kk) put(kk, kk % FRS);
+        if (upt > S) {
+          if (L == 1) group_sync(grp);  // the group is done reading X
+          for (int i = S; i < upt; ++i) fill(i, s1);
+        }
+        fence_async_smem();
+      }
+    }
+    bulk_wait<false>();
+  }
+}
+
+// ---------------------------------------------------------------------------
 // C launchers
 // ---------------------------------------------------------------------------
 
@@ -920,12 +1403,6 @@ static int make_args(MlpArgs* a, const void* const* blk, const int* rows,
   a->d_out = d_out;
   a->M = M;
   return 0;
-}
-
-static size_t fwd_smem_bytes(const int* kp, const int* np, int n_layers) {
-  int hmax = 0;
-  for (int l = 0; l < n_layers - 1; ++l) hmax = hmax > np[l] ? hmax : np[l];
-  return sizeof(bf16) * (size_t)TS * ((size_t)(kp[0] + 8) + 2 * (size_t)(hmax + 8));
 }
 
 static int pad64(int r) { return (r + 63) / 64 * 64; }
@@ -979,29 +1456,6 @@ static size_t tile_smem_bytes(const int* kp, const int* np, int n_layers) {
 
 static size_t dw_smem_bytes() {
   return sizeof(bf16) * 2 * (size_t)DW_CH * (SA_DW + SWS);
-}
-
-extern "C" int fused_mlp_fwd(const void* const* blk, const int* rows,
-                             const int* offs, int n_blocks,
-                             const void* const* wt, const void* const* bias,
-                             const int* kp, const int* np, int n_layers,
-                             int cin8, int d_out, long long M, void* out,
-                             void* stream) {
-  MlpArgs a;
-  int rc = make_args(&a, blk, rows, offs, n_blocks, wt, nullptr, bias, kp, np,
-                     n_layers, cin8, d_out, M);
-  if (rc) return rc;
-  if (M == 0) return (int)cudaGetLastError();
-  const size_t smem = fwd_smem_bytes(kp, np, n_layers);
-  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long ntiles = (M + TS - 1) / TS;
-  fused_mlp_fwd_kernel<<<(unsigned)ntiles, NTHREADS, smem,
-                         (cudaStream_t)stream>>>(a, (float*)out);
-  return (int)cudaGetLastError();
 }
 
 // part: zeroed fp32 scratch [nblk][n_part], n_part = sum_l np*kp + np;
@@ -1071,5 +1525,86 @@ extern "C" int fused_mlp_bwd(const void* const* blk, const int* rows,
   }
   mlp_reduce_partials_kernel<<<(unsigned)((pl.n_t + 255) / 256), 256, 0, st>>>(
       (const float*)part_t, nblk, pl.n_t, (float*)dwb + pl.n_dw);
+  return (int)cudaGetLastError();
+}
+
+// B8's plan: the rows of H, each layer's chunk width and the dynamic
+// shared memory (ring stages into nst); 0 for nets the kernel does not
+// take (an output width past NPASS, fewer than two stages that fit).
+static int fwd_hmax(const int* np, int n_layers) {
+  int h = 0;
+  for (int l = 0; l < n_layers - 1; ++l) h = h > np[l] ? h : np[l];
+  return h;
+}
+
+static int fwd_kc(int kp, int np) {
+  const int kc = FSTAGE / np / 16 * 16;
+  return kc < kp ? kc : kp;
+}
+
+static size_t fwd_smem(const int* kp, const int* np, int n_layers, int* nst) {
+  for (int l = 0; l < n_layers; ++l)
+    if (np[l] > NPASS) return 0;
+  const long long fixed = FALIGN + FBAR + FRAW +
+                          2LL * FT * (kp[0] + fwd_hmax(np, n_layers)) +
+                          (long long)sizeof(float*) * kp[0];
+  const long long room = (SMEM_MAX - fixed) / (2 * FSTAGE);
+  if (room < 2) return 0;
+  const int n = room < FST_MAX ? (int)room : FST_MAX;
+  if (nst) *nst = n;
+  return (size_t)(fixed + 2LL * n * FSTAGE);
+}
+
+// Dynamic shared memory of a B8 block (for reports and the wrapper's
+// check), or -1 for nets it does not take.
+extern "C" long long fused_mlp_fwd_smem_bytes(const int* kp, const int* np,
+                                              int n_layers) {
+  if (n_layers < 1 || n_layers > MAXL) return -1;
+  const size_t smem = fwd_smem(kp, np, n_layers, nullptr);
+  return smem ? (long long)smem : -1;
+}
+
+// wt[l]: layer l's weights in the chunk layout ([kp/16][np][16] bf16
+// slabs, 16-byte aligned); out: fp32 [d_out][M].
+extern "C" int fused_mlp_fwd(const void* const* blk, const int* rows,
+                             const int* offs, int n_blocks,
+                             const void* const* wt, const void* const* bias,
+                             const int* kp, const int* np, int n_layers,
+                             int cin8, int d_out, long long M, void* out,
+                             void* stream) {
+  MlpArgs a;
+  int rc = make_args(&a, blk, rows, offs, n_blocks, wt, nullptr, bias, kp, np,
+                     n_layers, cin8, d_out, M);
+  if (rc) return rc;
+  FwdPlan p;
+  const size_t smem = fwd_smem(kp, np, n_layers, &p.nst);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  p.hmax = fwd_hmax(np, n_layers);
+  p.vec = M % 4 == 0 && (uintptr_t)out % 16 == 0;
+  for (int i = 0; i < n_blocks; ++i)
+    if ((uintptr_t)blk[i] % 16) p.vec = 0;
+  p.nq = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    const int kc = fwd_kc(kp[l], np[l]);
+    p.kc[l] = kc;
+    if ((uintptr_t)wt[l] % 16) return (int)cudaErrorInvalidValue;
+    for (int k0 = 0; k0 < kp[l]; k0 += kc) {
+      if (p.nq == FMAXQ) return (int)cudaErrorInvalidValue;
+      p.q_src[p.nq] = (const bf16*)wt[l] + (size_t)k0 * np[l];
+      p.q_bytes[p.nq] = 2 * np[l] * (kc < kp[l] - k0 ? kc : kp[l] - k0);
+      ++p.nq;
+    }
+  }
+  p.ntiles = (M + FT - 1) / FT;
+  if (M == 0) return (int)cudaGetLastError();
+  int dev = 0, n_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = set_smem(fused_mlp_fwd_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long grid = p.ntiles < n_sm ? p.ntiles : n_sm;
+  fused_mlp_fwd_kernel<<<(unsigned)grid, FNT, smem, (cudaStream_t)stream>>>(
+      a, p, (float*)out);
   return (int)cudaGetLastError();
 }

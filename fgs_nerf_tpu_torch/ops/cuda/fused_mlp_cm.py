@@ -2,16 +2,23 @@
 
 Replaces ``fgs_nerf_tpu/ops/pallas/fused_mlp_cm.py:231``
 (``fused_mlp_cm_fwd_pallas``) and ``:258`` (``fused_mlp_cm_bwd_pallas``);
-the CUDA source is ``csrc/fused_mlp_cm.cu`` (design and bound in its
-header; operations-bound).  B8: 64-sample tiles in shared memory, bf16
-``mma.sync`` products with B fragments from L2.  B9: a per-tile pass on
-128-sample tiles with the weights staged in shared memory, which writes
-dx, the tile's bf16 activations and cotangents to a scratch buffer and
-per-block bias sums; a split-K dW kernel over sample ranges; and a
-fixed-order sum of the partials (``bwd_plan``).  The function, its plain
-twins and the autograd op live in ``ops/fused_mlp_cm.py``; this module
-prepares the kernels' operands (every dim padded to 16 with zeros, the
-weights in bf16 in both [out][in] and [in][out] order) and launches them.
+the CUDA source is ``csrc/fused_mlp_cm.cu`` (design and bounds in its
+header).  B8: one persistent block an SM on 128-sample tiles; a producer
+warpgroup copies each layer's weights once per tile, in <= 16 KB chunks
+of the slab layout (``slab_layout``), by bulk copies (the TMA engine)
+into a ring of shared-memory stages, and two consumer warpgroups, each
+owning 64 samples, run the products on ``wgmma`` with both operands in
+shared memory, load the next tile's input rows during this tile's
+products and write the output by bulk stores (``fwd_plan``).  B9: a
+per-tile pass on 128-sample tiles with the weights staged in shared
+memory, which writes dx, the tile's bf16 activations and cotangents to a
+scratch buffer and per-block bias sums; a split-K dW kernel over sample
+ranges; and a fixed-order sum of the partials (``bwd_plan``).  Both
+refuse a layer wider than 256 outputs.  The function, its plain twins
+and the autograd op live in ``ops/fused_mlp_cm.py``; this module prepares
+the kernels' operands (every dim padded to 16 with zeros, the weights in
+bf16 in [out][in] and [in][out] order for B9 and in B8's slab layout)
+and launches them.
 """
 from __future__ import annotations
 
@@ -34,8 +41,15 @@ KERNEL = CudaKernel(
 
 MAX_BLOCKS = 16
 MAX_LAYERS = 8
-TILE = 64
 SMEM_MAX = 232448  # bytes of shared memory a block can use on an H100
+# B8 (the launcher's own constants, csrc/fused_mlp_cm.cu)
+FWD_TILE = 128        # samples per tile (FT)
+FWD_STAGE = 16384     # bytes of a ring stage: 32 inputs of 256 outputs
+FWD_STAGES_MAX = 7    # most ring stages (FST_MAX)
+FWD_ALIGN = 1024      # alignment of the ring, X and H (FALIGN)
+FWD_BAR = 1024        # bytes for the mbarriers (FBAR)
+FWD_RAW = 16384       # bytes staging the input units: 8 warps x 2 x 1 KB (FRAW)
+FWD_MAXQ = 96         # most weight chunks a tile (FMAXQ)
 # B9 (the launcher's own constants, csrc/fused_mlp_cm.cu)
 BWD_TILE = 128      # samples per tile of the per-tile pass (BT)
 BWD_WM = 2          # warps along the samples of a per-tile block (WM)
@@ -96,6 +110,45 @@ def dw_ranges(mp: int, nr: int):
             for r in range(nr)]
 
 
+def fwd_kc(kp: int, np_: int) -> int:
+    """Inputs of one B8 weight chunk of a layer: whole 16-input slabs of
+    ``np_`` outputs in one ring stage, at most the layer's ``kp``."""
+    return min(kp, FWD_STAGE // 2 // np_ // 16 * 16)
+
+
+def fwd_plan(m: int, kp: Sequence[int], np_: Sequence[int],
+             n_sm: int) -> dict:
+    """B8's launch for M = ``m`` samples and padded layer widths ``kp``
+    (inputs) / ``np_`` (outputs), as the launcher plans it: the tile, the
+    tiles and the persistent grid (at most one block an SM), the ring's
+    stages, the block's dynamic shared memory (``smem``; ``stages`` < 2
+    means the net does not fit), the weight chunks a tile (``chunks``)
+    and the bytes the bulk copies move from L2 a call
+    (``l2_weight_bytes``: every tile stages the whole net once)."""
+    hmax = max(np_[:-1], default=0)
+    fixed = (FWD_ALIGN + FWD_BAR + FWD_RAW + 2 * FWD_TILE * (kp[0] + hmax)
+             + 8 * kp[0])
+    stages = min(FWD_STAGES_MAX, (SMEM_MAX - fixed) // FWD_STAGE)
+    ntiles = -(-m // FWD_TILE)
+    return dict(
+        tile=FWD_TILE, ntiles=ntiles, grid=min(n_sm, ntiles), stages=stages,
+        smem=fixed + stages * FWD_STAGE,
+        chunks=sum(-(-k // fwd_kc(k, n)) for k, n in zip(kp, np_)),
+        l2_weight_bytes=ntiles * 2 * sum(k * n for k, n in zip(kp, np_)))
+
+
+def slab_layout(wt: torch.Tensor) -> torch.Tensor:
+    """B8's weight layout of one layer: bf16 [np][kp] (out-major) ->
+    16-input slabs [kp/16][np][16], the two 8-input halves of a row
+    swapped on rows 4-7 of every 8: the K-major 32-byte swizzle layout in
+    which the kernel's wgmma reads them.  (n, k) lies at ``(k // 16) * np * 16 + n * 16 + 8 * ((k // 8) % 2 ^
+    (n // 4) % 2) + k % 8``."""
+    np_, kp = wt.shape
+    x = wt.view(np_ // 8, 2, 4, kp // 16, 2, 8)
+    x = torch.stack([x[:, 0], x[:, 1].flip(-2)], dim=1)
+    return x.reshape(np_, kp // 16, 2, 8).permute(1, 0, 2, 3).contiguous()
+
+
 def _arr(ctype, values):
     return (ctype * len(values))(*values)
 
@@ -142,19 +195,22 @@ class _Operands:
             self.b.append(torch.nn.functional.pad(
                 bias.float(), (0, np_ - bias.shape[0])).contiguous())
         widths = [tuple(w.shape) for w in weights]
+        name = "fused_mlp_cm_bwd" if backward else "fused_mlp_cm_fwd"
+        if max(self.np_) > NPASS:
+            raise ValueError(f"{name} kernel: layer widths {widths} pad "
+                             f"past {NPASS} outputs")
         if backward:
-            if max(self.np_) > NPASS:
-                raise ValueError(
-                    f"fused_mlp_cm_bwd kernel: layer widths {widths} pad "
-                    f"past {NPASS} outputs")
             smem = bwd_plan(m, self.kp, self.np_, 1)["smem_tile"]
         else:
-            smem = TILE * 2 * (self.kp[0] + 8)
-            hid = [n + 8 for n in self.np_[:-1]]
-            smem += TILE * 2 * 2 * (max(hid, default=8))
+            plan = fwd_plan(m, self.kp, self.np_, 1)
+            smem = plan["smem"] + max(0, 2 - plan["stages"]) * FWD_STAGE
+            if plan["chunks"] > FWD_MAXQ:
+                raise ValueError(f"{name} kernel: {plan['chunks']} weight "
+                                 f"chunks a tile for widths {widths}; at "
+                                 f"most {FWD_MAXQ}")
         if smem > SMEM_MAX:
             raise ValueError(
-                f"fused_mlp_cm kernel: needs {smem} bytes of shared memory "
+                f"{name} kernel: needs {smem} bytes of shared memory "
                 f"for widths {widths}; the card gives a block {SMEM_MAX}")
         self.ptr_blocks = _arr(ctypes.c_void_p, [b.data_ptr() for b in blocks])
         self.c_rows = _arr(ctypes.c_int, rows)
@@ -175,8 +231,10 @@ def launch_fwd(blocks: Sequence[torch.Tensor], weights, biases) -> torch.Tensor:
     """Launch B8 -> [d_out, M] f32."""
     ops = _Operands(blocks, weights, biases, backward=False)
     dev = blocks[0].device
+    slabs = [slab_layout(w) for w in ops.wt]
+    ptr_slabs = _arr(ctypes.c_void_p, [t.data_ptr() for t in slabs])
     out = torch.empty((ops.d_out, ops.m), dtype=torch.float32, device=dev)
-    KERNEL.call("fused_mlp_fwd", *ops.head(), ctypes.addressof(ops.ptr_wt),
+    KERNEL.call("fused_mlp_fwd", *ops.head(), ctypes.addressof(ptr_slabs),
                 ctypes.addressof(ops.ptr_b), ctypes.addressof(ops.c_kp),
                 ctypes.addressof(ops.c_np), len(weights), ops.cin8, ops.d_out,
                 ops.m, out.data_ptr(), stream_ptr(dev))

@@ -1,23 +1,38 @@
-"""Time variants of kernel B9 (the fused MLP backward) on the card, each
-built from a copy of ``fgs_nerf_tpu_torch/csrc/fused_mlp_cm.cu`` with a
-few constants or lines replaced, at the fine head's widths (M =
-1,048,576, random inputs from seed 0), its time split by kernel with
-``torch.profiler``, in two rounds of turns.
+"""Time variants of kernels B8 and B9 (the fused MLP forward and
+backward) on the card, each built from a copy of
+``fgs_nerf_tpu_torch/csrc/fused_mlp_cm.cu`` with a few constants or lines
+replaced, at the fine head's widths (M = 1,048,576, random inputs from
+seed 0), their time split by kernel with ``torch.profiler``, in two
+rounds of turns.
 
     python scripts/time_mlp_variants.py [NAME ...]
 
 Variants (default: all):
 
-- ``base``: the source as it is.
-- ``tile64``: 64-sample tiles, 8 warps, 32-row weight chunks, two
-  per-tile blocks an SM (twice the grid).
-- ``warps8`` / ``warps32``: 8 warps of 64 x 64 / 32 warps of 32 x 32
-  accumulator tiles a block (128-sample tiles).
-- ablations, whose outputs are wrong and whose time says what the part
+- ``base``: the source as it is (B8 and B9 both timed).
+- B9: ``tile64``: 64-sample tiles, 8 warps, 32-row weight chunks, two
+  per-tile blocks an SM (twice the grid); ``warps8`` / ``warps32``: 8
+  warps of 64 x 64 / 32 warps of 32 x 32 accumulator tiles a block
+  (128-sample tiles).
+- B9 ablations, whose outputs are wrong and whose time says what the part
   costs: ``no_mma`` (no tensor-core product in the per-tile pass),
   ``no_loads`` (no global loads of the inputs or the cotangents),
   ``no_stores`` (no scratch stores), ``no_wcopy`` (no weight copies),
   ``no_ballots`` (no ReLU mask ballots).
+- B8 ablations (outputs wrong, likewise): ``fwd_no_mma`` (no wgmma
+  product), ``fwd_no_loads`` (no global loads of the input rows),
+  ``fwd_no_stores`` (no output stores), ``fwd_no_wcopy`` (no bulk copies
+  of the weights: each stage's barrier completes at once), and their
+  combinations ``fwd_mma_only`` (no loads, no stores), ``fwd_io_only``
+  (no products, loads or stores) and ``fwd_sync_only`` (and no weight
+  copies: the kernel's skeleton of waits, barriers, epilogues and X
+  stores).
+- B8 variants: ``fwd_frs3`` (input units stored two chunks after their
+  copy, not one: three staging slots a warp), ``fwd_late_prefetch`` (a
+  chunk's input step after its wgmmas are committed, not before they are
+  issued).
+
+Each line also says whether ptxas serialized B8's wgmmas (C7520).
 
 The copies and their builds go under ``results/mlp_variants/``.  Prints
 one JSON line per net, variant and round, with the card's name and
@@ -55,12 +70,36 @@ VARIANTS = {
                    "      *reinterpret_cast<uint4*>(dst + (long long)s * width + c) = v;")],
     "no_wcopy": [("      cp_async16(dst + r * sw + k, src + (long long)r * p.ldb + k);",
                   "      if (k < 0) cp_async16(dst + r * sw + k, src + (long long)r * p.ldb + k);")],
+    "fwd_no_mma": [("wgmma_n<N>(acc, da, db, sd);", "if (sd < 0) wgmma_n<N>(acc, da, db, sd);")],
+    "fwd_no_loads": [("cp_async4z(raw + sl * 256 + 2 * m + e, ok ? row + s : a.blk[0], ok ? 4u : 0u);",
+                      "cp_async4z(raw + sl * 256 + 2 * m + e, a.blk[0], 0u);")],
+    "fwd_no_stores": [("__stcs(reinterpret_cast<float4*>(row + s), v);",
+                       "if (v.x == 12345.0f) __stcs(reinterpret_cast<float4*>(row + s), v);"),
+                      ("if (tg < rows && base + tg < a.d_out)\n",
+                       "if (tg < rows && base + tg < a.d_out && M < 0)\n")],
+    "fwd_no_wcopy": [("mbar_expect_tx(full + st, (uint32_t)p.q_bytes[c]);", "mbar_arrive(full + st);"),
+                     ("bulk_load(ring + st * FSTAGE, p.q_src[c], (uint32_t)p.q_bytes[c], full + st);", "")],
+    "fwd_frs3": [("#define FRS 2 ", "#define FRS 3 ")],
+    "fwd_late_prefetch": [],  # filled below: the prefetch step after the commit
+    "fwd_io_only": [],      # filled below: no products, loads, stores
+    "fwd_sync_only": [],    # and no weight copies
+    "fwd_mma_only": [],     # products and the ring: no loads, no stores
     "no_ballots": [("        const uint32_t w0 = __ballot_sync(0xffffffffu, z0 > 0.0f);\n"
                     "        const uint32_t w1 = __ballot_sync(0xffffffffu, z1 > 0.0f);\n"
                     "        if (lane == 0) {",
                     "        const uint32_t w0 = 0, w1 = 0;\n"
                     "        if (lane == 0 && z0 == 12345.0f) {")],
 }
+VARIANTS["fwd_io_only"] = (VARIANTS["fwd_no_mma"] + VARIANTS["fwd_no_loads"]
+                           + VARIANTS["fwd_no_stores"])
+VARIANTS["fwd_sync_only"] = VARIANTS["fwd_io_only"] + VARIANTS["fwd_no_wcopy"]
+VARIANTS["fwd_mma_only"] = VARIANTS["fwd_no_loads"] + VARIANTS["fwd_no_stores"]
+# the prefetch step of a chunk moved from before its wgmmas to after its commit
+_PREF = (CSRC / "fused_mlp_cm.cu").read_text()
+_PREF = _PREF[_PREF.index("            if (l > 0) {\n              if (has_next) {"):
+              _PREF.index("            const bf16* ws = ring + st * FSTAGE;")]
+VARIANTS["fwd_late_prefetch"] = [
+    (_PREF, ""), ("            wgmma_commit();\n", "            wgmma_commit();\n" + _PREF)]
 NETS = (
     ("rgbnet", (12, 33, 21, 1, 24, 12, 3), (106, 256, 256, 256, 256)),
     ("refnet", (256, 51), (307, 256, 256, 256, 3)),
@@ -105,11 +144,14 @@ def main():
         if p.returncode:
             raise SystemExit(f"variant {n}: nvcc failed\n{log[-3000:]}")
         lines = log.splitlines()
-        at = next(i for i, l in enumerate(lines)
-                  if "Compiling entry" in l and "tile_bwd" in l)
-        ptxas[n] = " ".join(l.split(":", 1)[-1].strip()
-                            for l in lines[at + 1:at + 4] if "Used" in l
-                            or "spill" in l)
+        ptxas[n] = {}
+        for entry in ("tile_bwd", "mlp_fwd"):
+            at = next(i for i, l in enumerate(lines)
+                      if "Compiling entry" in l and entry in l)
+            ptxas[n][entry] = " ".join(
+                l.split(":", 1)[-1].strip() for l in lines[at + 1:at + 4]
+                if "Used" in l or "spill" in l)
+        ptxas[n]["serialized_wgmma"] = any("C7520" in l for l in lines)
         lib = ctypes.CDLL(str(OUT / f"lib{n}.so"))
         for fn, argtypes in B89.KERNEL.launchers.items():
             f = getattr(lib, fn)
@@ -138,13 +180,18 @@ def main():
             for n, lib in libs.items():
                 B89.KERNEL._lib = lib
                 B89.bwd_plan = plan_twice_the_grid if n == "tile64" else plan
-                split = kernel_split_ms(
-                    torch, lambda: FM.fused_mlp_cm_bwd(blocks, ws, bs, g))
+                split = {}
+                if not n.startswith("fwd_"):
+                    split.update(kernel_split_ms(
+                        torch, lambda: FM.fused_mlp_cm_bwd(blocks, ws, bs, g)))
+                if n == "base" or n.startswith("fwd_"):
+                    split.update(kernel_split_ms(
+                        torch, lambda: FM.fused_mlp_cm_fwd(blocks, ws, bs)))
                 print(json.dumps({
                     "net": net, "variant": n, "round": rnd,
                     **{k.split("(")[0]: v for k, v in split.items()
                        if "mlp" in k},
-                    "ptxas_tile_bwd": ptxas[n], "card": card}), flush=True)
+                    "ptxas": ptxas[n], "card": card}), flush=True)
         B89.bwd_plan = plan
         del blocks, ws, bs, g
         torch.cuda.empty_cache()

@@ -256,6 +256,48 @@ def test_bwd_plan(name, m, want):
     assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
 
 
+@pytest.mark.parametrize("name,m,want", [
+    # 6 stages of 16 KB beside X (144 rows), H (256 rows) of 128 samples
+    # and the input staging
+    ("rgbnet", 1_048_576, dict(grid=132, ntiles=8192, stages=6,
+                               smem=220_288, chunks=29,
+                               l2_weight_bytes=8192 * 466_944)),
+    # X's 320 rows leave room for 3 stages; the 256 x 16 layer is one chunk
+    ("refnet", 1_048_576, dict(grid=132, ntiles=8192, stages=3,
+                               smem=217_600, chunks=27,
+                               l2_weight_bytes=8192 * 434_176)),
+    # ragged: 65 tiles of 128, fewer than the SMs
+    ("rgbnet", 8192 + 77, dict(grid=65, ntiles=65, stages=6,
+                               smem=220_288, chunks=29,
+                               l2_weight_bytes=65 * 466_944)),
+])
+def test_fwd_plan(name, m, want):
+    """B8's launch for the fine head's nets on 132 SMs, as the source
+    header figures it: 128-sample tiles, a persistent grid of at most one
+    block an SM, the ring stages that fit beside X and H, and the weight
+    bytes the bulk copies move (every tile stages the whole net once)."""
+    _, kp, np_ = _FINE_NETS[name]
+    plan = K.fwd_plan(m, kp, np_, 132)
+    assert plan["tile"] == 128
+    assert {k: plan[k] for k in want} == want
+    assert plan["smem"] <= K.SMEM_MAX
+
+
+def test_fwd_slab_layout():
+    """B8's weight layout: element (n, k) of a layer lies where the
+    kernel's ldmatrix reads it, every element once."""
+    np_, kp = 48, 80
+    w = torch.as_tensor(np.random.default_rng(0).normal(size=(np_, kp)),
+                        dtype=torch.bfloat16)
+    flat = K.slab_layout(w).reshape(-1)
+    n = torch.arange(np_)[:, None]
+    k = torch.arange(kp)[None, :]
+    at = ((k // 16) * np_ * 16 + n * 16 + 8 * ((k // 8) % 2 ^ (n // 4) % 2)
+          + k % 8)
+    assert torch.equal(flat[at], w)
+    assert sorted(at.reshape(-1).tolist()) == list(range(np_ * kp))
+
+
 def _kernel_order_bwd(blocks, weights, biases, g, n_sm, drop_range=False):
     """B9's function summed in its kernels' order, in f32: dW of the
     dW-kernel layers over each sample range, then the ranges in order;

@@ -594,3 +594,100 @@ def test_b8_b9_match_plain(cuda, name):
     (out * g).sum().backward()
     for blk, o, r in zip(tb, FM.pad_plan(rows)[0], rows):
         assert torch.equal(blk.grad, dx[o:o + r])
+
+
+# B8's edges (csrc/fused_mlp_cm.cu): (block rows, layer widths, M, share
+# of outputs allowed past 1e-5, as MLP_FLIP_SHARE: 1% for one or two
+# 64-wide hidden layers, 2% for deeper or wider nets)
+_B8_EDGES = {
+    "one-layer": ((12, 33), (45, 64), 8192, 0.01),
+    "eight-layers": ((12, 33, 33, 3, 9), (90,) + (64,) * 7 + (3,), 8192,
+                     0.02),
+    # kp0 432 beside 256-wide hidden layers: two ring stages, the least
+    "kp0-limit": ((216, 215), (431, 256, 256, 3), 8192, 0.02),
+    "sixteen-blocks": (tuple(range(1, 17)), (136, 64, 64, 3), 8192, 0.01),
+    # 301 tiles over the persistent grid, the last one 77 samples
+    "many-tiles": ((12, 33, 21, 1, 24, 12, 3), (106, 256, 256, 256, 256),
+                   128 * 300 + 77, 0.02),
+}
+# samples of the many-tile case's inputs taken alone: M = 1 and a tile
+# less one
+_B8_PREFIX = {"m-1": 1, "m-tile-less-one": 127}
+
+
+def _b8_inputs(cuda, rows, dims, m, seed=12):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=cuda) * scale
+
+    blocks = [randn(r, m, scale=0.5) for r in rows]
+    weights = [randn(i, o, scale=i ** -0.5) for i, o in zip(dims[:-1], dims[1:])]
+    biases = [randn(o, scale=0.1) for o in dims[1:]]
+    return blocks, weights, biases
+
+
+@pytest.mark.parametrize("name", sorted(_B8_EDGES) + sorted(_B8_PREFIX))
+def test_b8_edges(cuda, name):
+    """B8 against its twin at the edges of its design: one and eight
+    layers, kp0 at its shared-memory limit, 16 input blocks, many tiles a
+    block with a ragged last tile, M = 1 and M = 127; every call repeated
+    bit for bit.  A share over 1 or 127 samples counts one or two
+    samples, so those two cases are held bit for bit to the same samples
+    inside the many-tile call, which is held to the share limit; a
+    one-layer net has no hidden rounding for the control to leave out."""
+    prefix = None
+    if name in _B8_PREFIX:
+        rows, dims, m_all, limit = _B8_EDGES["many-tiles"]
+        blocks, weights, biases = _b8_inputs(cuda, rows, dims, m_all)
+        m = _B8_PREFIX[name]
+        prefix = FM.fused_mlp_cm_fwd(blocks, weights, biases)[:, :m]
+        blocks = [b[:, :m].contiguous() for b in blocks]
+    else:
+        rows, dims, m, limit = _B8_EDGES[name]
+        blocks, weights, biases = _b8_inputs(cuda, rows, dims, m)
+    if name == "kp0-limit":
+        kp, np_ = [432, 256, 256], [256, 256, 16]
+        assert B89.fwd_plan(m, kp, np_, 132)["stages"] == 2
+        assert B89.fwd_plan(m, [448] + kp[1:], np_, 132)["stages"] < 2
+    n0 = B89.KERNEL.launches["fused_mlp_fwd"]
+    got = FM.fused_mlp_cm_fwd(blocks, weights, biases)
+    again = FM.fused_mlp_cm_fwd(blocks, weights, biases)
+    want = FM.fused_mlp_cm_fwd_plain(blocks, weights, biases)
+    unrounded = FM.fused_mlp_cm_fwd_plain(blocks, weights, biases,
+                                          round_hidden=False)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    readings = {
+        "max": float(diff.max()),
+        "share_past_1e5": float((diff > 1e-5).float().mean()),
+        "control_share": float(((unrounded - want).abs() > 1e-5)
+                               .float().mean()),
+    }
+    print(name, readings)
+    assert got.shape == (dims[-1], m)
+    assert B89.KERNEL.launches["fused_mlp_fwd"] == n0 + 2
+    assert torch.equal(got, again)
+    assert readings["max"] < 1e-2
+    if prefix is not None:
+        assert torch.equal(got, prefix)
+    else:
+        assert readings["share_past_1e5"] < limit
+        if len(dims) > 2:
+            assert readings["control_share"] > limit
+
+
+@pytest.mark.parametrize("rows,dims,match", [
+    ((12, 33), (45, 272, 3), "pad past 256 outputs"),
+    # kp0 448 beside 256-wide hidden layers: not two stages beside X and H
+    ((224, 224), (448, 256, 256, 3), "shared memory"),
+])
+def test_b8_refuses_nets_past_its_limits(cuda, rows, dims, match):
+    """A layer wider than 256 outputs, or an input too wide for the
+    block's shared memory, raises ValueError naming the widths before any
+    launch."""
+    blocks, weights, biases = _b8_inputs(cuda, rows, dims, 256)
+    n0 = B89.KERNEL.launches["fused_mlp_fwd"]
+    with pytest.raises(ValueError, match=match):
+        FM.fused_mlp_cm_fwd(blocks, weights, biases)
+    assert B89.KERNEL.launches["fused_mlp_fwd"] == n0
