@@ -128,6 +128,41 @@ The DTU path:
     twin as in phase 14.  Checks as there, and a finite Chamfer that the
     evaluator wrote to ``resulteval.txt`` and its stats.
 
+The remaining loaders, the DVGO geometry search and the TensoRF k0:
+
+16. Loaders: write one small scan of each remaining format with the
+    port's ``write_png`` (``write_llff_scan`` and its siblings: LLFF at 20
+    views of 504 x 378, LLFF's factor-8 size, loaded at ``factor`` 1 and
+    2, and a spherified inward LLFF ring; NSVF, Tanks & Temples,
+    BlendedMVS, NeRF++, CO3D, ILSH at ``factor`` 3 and DeepVoxels at the
+    sizes of ``tests/test_loaders.py``) and load each through
+    ``data/dataset.py:load_dataset``: views, splits, image shapes, near /
+    far, pixels in [0, 1], load seconds; neither ``imageio`` nor ``cv2``
+    may be imported.
+17. ``--dvgo_init``: the CLI in process on ``full_synthetic`` at the
+    built-in ``dvgo`` / ``dvgo_model`` widths (100^3, N_rand 8,192,
+    sample_k 256, per-voxel learning rates; alpha_init 0.01, see
+    ``_DVGO_CONFIG``), the depth cut to 16 DVGO steps and 4 coarse steps
+    off its checkpoint, without the final evaluation (phase 14's).  Both
+    B7 calls of the first DVGO step (density: 8 columns, k0: 24; the
+    stage's loss reads no normals, so the gradient field's sample has no
+    backward) are held against their twin, repeated, timed beside
+    ``index_add_`` and bounded; the DVGO step is timed (ms, rays/s, peak
+    memory) and profiled (idle share), and a kernel step is compared with
+    a plain-twin step (loss 1e-4, gradients relative L2 1e-3).  Checks:
+    finite PSNR, a DVGO checkpoint of density and k0 with a non-empty
+    sdf_mask, B7 alone launched by the DVGO stage, B1-B4 by the coarse.
+18. TensoRF: the ``bench.py`` sorted coarse step with ``grid_type=
+    'tensorf'`` (8 components, densified every step): 2 warm-up and 4
+    timed steps with B1-B4 launched each step, then a kernel step against
+    a plain-twin step as phase 4 (every factor's gradient).
+
+B1 and B5 calls of phases 2 and 5-8 also carry a library time: one
+``F.grid_sample`` (trilinear, ``align_corners=True``, zero padding) of
+the unpacked [1, C, X, Y, Z] grid at the serve's own points, held within
+1e-4 of the serve's output (it recomputes the fractions from the
+weights).
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -228,9 +263,12 @@ _WORKLOADS = {
 }
 
 
-def _setup(torch, M, stage, engine, dev, n_rand):
+def _setup(torch, M, stage, engine, dev, n_rand, **cfg_over):
     """(cfg, box, params0, lrs, s_val, loss_and_grads, step) of the
-    ``stage`` bench workload on ``engine``."""
+    ``stage`` bench workload on ``engine``, its config fields replaced by
+    ``cfg_over``."""
+    import dataclasses
+
     from fgs_nerf_tpu_torch.core.box import SceneBox
     from fgs_nerf_tpu_torch.optim.masked_adam import ParamOpts
     from fgs_nerf_tpu_torch.train.losses import LossWeights
@@ -239,7 +277,7 @@ def _setup(torch, M, stage, engine, dev, n_rand):
     )
 
     make_cfg, loss_kw, lrs, s_val, inject_tv = _WORKLOADS[stage]
-    cfg = make_cfg(M, engine)
+    cfg = dataclasses.replace(make_cfg(M, engine), **cfg_over)
     box = SceneBox.create(XYZ_MIN, XYZ_MAX, dev)
     loss_w = LossWeights(**loss_kw)
     params0 = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
@@ -884,10 +922,96 @@ def _check_shade_bwd(torch, args, path):
                 dynamic_smem_bytes=_shade_smem(args))
 
 
-def _check_call(torch, name, args, path):
+def _grid_sample_library(torch, pack, c, grid3, margin, rows, w8, want):
+    """The library call beside a serve (B1, B5): one ``F.grid_sample``
+    (trilinear: ``mode='bilinear'`` on a 5-D input, ``align_corners=True``,
+    zero padding) of the unpacked [1, C, X, Y, Z] grid at the serve's own
+    points, base cells from ``rows`` (real rows from ``margin`` on) and
+    fractions from the weights ``w8`` [8, P] (corner k = dx*4 + dy*2 +
+    dz), which the serve quantized.  Returns (ms, its largest difference
+    from the serve's output ``want`` [C, P], that output's largest
+    value)."""
+    import torch.nn.functional as F
+
+    from fgs_nerf_tpu_torch.ops import sorted_cm as ST
+
+    x, y, z = grid3
+    r = ST.padded_rows_cm(grid3)
+    zp = ST.z_stride(z)
+    grid = pack[:c, margin:margin + r].reshape(c, x + 2, y + 2, zp)[
+        None, :, 1:1 + x, 1:1 + y, 1:1 + z].contiguous()
+    real = (rows.long() - margin < r) & (w8.sum(0) != 0)
+    b0, b1, b2 = ST.rows_to_coords_cm(
+        torch.clamp(rows.long() - margin, 0, r - 1), grid3)
+    ix = b0 - 1.0 + w8[4:8].sum(0)
+    iy = b1 - 1.0 + w8[[2, 3, 6, 7]].sum(0)
+    iz = b2 - 1.0 + w8[[1, 3, 5, 7]].sum(0)
+    # grid_sample's last axis is (W, H, D) = (z, y, x); outside: zeros
+    pts = torch.stack([2.0 * iz / (z - 1) - 1.0, 2.0 * iy / (y - 1) - 1.0,
+                       2.0 * ix / (x - 1) - 1.0], -1)
+    pts = torch.where(real[:, None], pts, torch.full_like(pts, 3.0))
+    pts = pts.reshape(1, 1, 1, -1, 3)
+    del b0, b1, b2, ix, iy, iz, real
+
+    def call():
+        return F.grid_sample(grid, pts, mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+
+    got = call().reshape(c, -1)
+    err = float((got - want.reshape(c, -1)).abs().max())
+    scale = float(want.abs().max())
+    del got
+    return _time_ms(call, 3, torch), err, scale
+
+
+def _library_into(out, lib):
+    """Record a serve's ``F.grid_sample`` time; the library call must
+    compute the serve's function at its points (within 1e-4 of the
+    output's largest value: it recomputes the fractions from the
+    weights)."""
+    ms, err, scale = lib
+    _check(err <= 1e-4 * scale + 1e-12,
+           f"F.grid_sample at the serve's points: {err} vs {scale}")
+    out.update(library_ms=ms, library="F.grid_sample",
+               library_max_abs_err=err)
+
+
+def _serve_library(torch, name, args, path, grid3):
+    """``_grid_sample_library`` for a recorded B1 or B5 call on a grid of
+    ``grid3`` (the fine x taps serve the transposed grid from a margin of
+    128 columns, the z/y taps from their envelope's margin)."""
+    from fgs_nerf_tpu_torch.ops import sorted_cm as ST
+    from fgs_nerf_tpu_torch.ops.cuda import tap_serve_cm as B56
+    from fgs_nerf_tpu_torch.ops.cuda import window_gather_cm as B1
+
+    if name == "window_gather_cm":
+        pack, rows, w8 = args
+        c = pack.shape[0] // 4
+        return _grid_sample_library(torch, pack, c, grid3, 0, rows, w8,
+                                    B1.window_gather_cm_plain(*args))
+    pack, rows, delta, w8t = args
+    if "x taps" in path:
+        grid3, maxneg = tuple(grid3)[::-1], 4
+    else:
+        maxneg = ST.tap_bounds(grid3)[0]
+    margin = (maxneg + 127) // 128 * 128
+    n_taps = delta.shape[0]
+    rows_t = (rows[None, :].long() + delta.long()).reshape(-1)
+    # (t, d, k2)-packed weights -> corner k = k2 * 2 + d, taps one after
+    # another
+    w8 = torch.cat([torch.stack([w8t[8 * t + 4 * (k & 1) + (k >> 1)]
+                                 for k in range(8)]) for t in range(n_taps)],
+                   dim=1)
+    return _grid_sample_library(torch, pack, 1, grid3, margin, rows_t, w8,
+                                B56.tap_window_serve_cm_plain(*args))
+
+
+def _check_call(torch, name, args, path, grid3=None):
     """Hold one recorded call of the kernel call site ``name`` (a
     function of ``ops/sorted_cm.py`` or ``ops/cuda/fused_shade_cm.py``)
-    against its twin; time and bound it."""
+    against its twin; time and bound it.  With the call's grid shape
+    ``grid3``, a serve (B1, B5) also gets its library time
+    (``F.grid_sample`` at its points)."""
     from fgs_nerf_tpu_torch.ops.cuda import scatter_combine_cm as B2
     from fgs_nerf_tpu_torch.ops.cuda import tap_serve_cm as B56
     from fgs_nerf_tpu_torch.ops.cuda import window_gather_cm as B1
@@ -910,6 +1034,8 @@ def _check_call(torch, name, args, path):
         out["smem_bytes"] = _b1_smem(c)
         out["segment64_bound_ms"] = _segment64_bound(
             torch, cols, pack, _nbytes(rows, w8) + 4 * c * rows.numel())
+        if grid3 is not None:
+            _library_into(out, _serve_library(torch, name, args, path, grid3))
         return out
     if name == "tap_window_serve_cm":
         pack, rows, delta, w8t = args
@@ -922,6 +1048,8 @@ def _check_call(torch, name, args, path):
         out["smem_bytes"] = 0  # no stage: its pack reads hit L1/L2
         out["segment64_bound_ms"] = _segment64_bound(
             torch, cols, pack, _nbytes(rows, delta, w8t) + 4 * delta.numel())
+        if grid3 is not None:
+            _library_into(out, _serve_library(torch, name, args, path, grid3))
         return out
     if name == "dense_accumulate_cm":
         rows, w8, g, n_rows = args
@@ -1044,7 +1172,8 @@ def _fine_phases(torch, np, card, dev, batch, n_rand):
         out = {}
         for name in list(calls):
             for args in calls[name]:
-                r = _check_call(torch, name, args, label(name, args) + suffix)
+                r = _check_call(torch, name, args, label(name, args) + suffix,
+                                grid3=cfg.world_size)
                 out.setdefault(name, []).append(r)
                 print(json.dumps({"kernel": name, **r, "card": card}))
             del calls[name]
@@ -1970,6 +2099,579 @@ def _dtu_coarse_row(calls):
     return {k: c[k] for k in keys if k in c}
 
 
+# ---- phase 16: one small scan of each remaining capture format ----------
+
+
+def write_random_png(path, h=8, w=8, channels=3, seed=0):
+    """A PNG of random uint8 pixels from ``seed`` (grayscale for 1)."""
+    import numpy as np
+
+    from fgs_nerf_tpu_torch.eval.image_io import write_png
+
+    img = np.random.default_rng(seed).integers(0, 256, size=(h, w, channels),
+                                               dtype=np.uint8)
+    write_png(path, img[..., 0] if channels == 1 else img)
+
+
+def llff_poses_bounds(n, hw, seed=1, inward=False):
+    """LLFF ``poses_bounds.npy`` rows: a 3 x 5 [down right back] camera
+    with its (h, w, focal) column, then near / far; forward-facing
+    cameras, or an inward ring (for ``spherify``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rows = np.zeros((n, 17))
+    for i in range(n):
+        if inward:
+            th = 2 * np.pi * i / n
+            c = np.array([np.cos(th), np.sin(th), 0.3 + 0.1 * rng.normal()])
+            z = c / np.linalg.norm(c)
+        else:
+            c = np.array([0.2 * np.cos(i), 0.2 * np.sin(i), 0.0])
+            c = c + 0.02 * rng.normal(size=3)
+            z = np.array([0.0, 0.0, 1.0]) + 0.05 * rng.normal(size=3)
+            z = z / np.linalg.norm(z)
+        right = np.cross([0.0, 1.0, 0.0], z)
+        right /= np.linalg.norm(right)
+        down = np.cross(z, right)
+        hwf = [hw[0], hw[1], 1.2 * hw[1]]
+        rows[i, :15] = np.stack([down, right, z, c, hwf], 1).reshape(-1)
+        rows[i, 15:] = [1.0 + 0.1 * rng.uniform(), 6.0 + rng.uniform()]
+    return rows
+
+
+def write_llff_scan(root, n=10, hw=(24, 32), ext="png", inward=False,
+                    channels=4):
+    """An LLFF scan: ``images/%03d.png`` (RGBA) and ``poses_bounds.npy``
+    (``.{ext}`` names hold the same PNG bytes).  Returns its data block."""
+    import os
+
+    import numpy as np
+
+    os.makedirs(os.path.join(root, "images"))
+    for i in range(n):
+        write_random_png(os.path.join(root, "images", f"{i:03d}.{ext}"),
+                         *hw, channels, seed=i)
+    np.save(os.path.join(root, "poses_bounds.npy"),
+            llff_poses_bounds(n, hw, inward=inward))
+    return dict(dataset_type="llff", datadir=root)
+
+
+def write_nsvf_scan(root, dtype="nsvf", with_traj=False, n=4, channels=3):
+    """An NSVF-layout scan (``pose/*.txt``, ``rgb/*.png`` whose first
+    digit is the split, ``intrinsics.txt``), laid out as
+    ``tests/test_loaders.py:54-68``; also Tanks & Temples and BlendedMVS
+    (``dtype``).  Returns its data block."""
+    import os
+
+    import numpy as np
+
+    os.makedirs(os.path.join(root, "pose"))
+    os.makedirs(os.path.join(root, "rgb"))
+    for i in range(n):
+        split = 0 if i < n - 1 else 1
+        pose = np.eye(4)
+        pose[:3, 3] = [i * 0.5, 0.0, 3.0]
+        np.savetxt(os.path.join(root, "pose", f"{split}_{i:03d}.txt"), pose)
+        write_random_png(os.path.join(root, "rgb", f"{split}_{i:03d}.png"),
+                         channels=channels, seed=i)
+    np.savetxt(os.path.join(root, "intrinsics.txt"),
+               np.array([[50.0, 0, 4], [0, 50.0, 4], [0, 0, 1]]))
+    if with_traj:
+        np.savetxt(os.path.join(root, "test_traj.txt"),
+                   np.stack([np.eye(4)] * 2).reshape(-1, 4))
+    return dict(dataset_type=dtype, datadir=root)
+
+
+def write_nerfpp_scan(root):
+    """A NeRF++ capture (``tests/test_loaders.py:158-177``) with a
+    three-pose camera path at another focal.  Returns its data block."""
+    import os
+
+    import numpy as np
+
+    k = np.eye(4)
+    k[0, 0] = k[1, 1] = 50.0
+    for split, n in (("train", 4), ("test", 2)):
+        for sub in ("intrinsics", "pose", "rgb"):
+            os.makedirs(os.path.join(root, split, sub))
+        for i in range(n):
+            np.savetxt(os.path.join(root, split, "intrinsics", f"{i:03d}.txt"),
+                       k.reshape(-1)[None])
+            c2w = np.eye(4)
+            c2w[:3, 3] = [np.cos(i + (split == "test")), np.sin(i), 1.0]
+            np.savetxt(os.path.join(root, split, "pose", f"{i:03d}.txt"),
+                       c2w.reshape(-1)[None])
+            write_random_png(os.path.join(root, split, "rgb", f"{i:03d}.png"),
+                             seed=i)
+    for sub in ("intrinsics", "pose"):
+        os.makedirs(os.path.join(root, "camera_path", sub))
+    k[0, 0] = k[1, 1] = 40.0
+    for i in range(3):
+        c2w = np.eye(4)
+        c2w[:3, 3] = [0.5 * i, 0.2, 1.5]
+        np.savetxt(os.path.join(root, "camera_path", "pose", f"{i:03d}.txt"),
+                   c2w.reshape(-1)[None])
+        np.savetxt(os.path.join(root, "camera_path", "intrinsics",
+                                f"{i:03d}.txt"), k.reshape(-1)[None])
+    return dict(dataset_type="nerfpp", datadir=root)
+
+
+def write_co3d_scan(root):
+    """A CO3D sequence (``tests/test_loaders.py:180-218``): gzip'd
+    annotations, a split file, five views of which one has another shape
+    (the object-array path) and one an empty mask (dropped); grayscale
+    masks.  Returns its data block."""
+    import gzip
+    import os
+
+    import numpy as np
+
+    from fgs_nerf_tpu_torch.eval.image_io import write_png
+
+    seq = "seq1"
+    annot, split = [], {"known_frames": [], "unseen_frames": []}
+    for i in range(5):
+        im_path, mask_path = f"img_{i}.png", f"mask_{i}.png"
+        h = 8 if i < 3 else 10
+        write_random_png(os.path.join(root, im_path), h=h, seed=i)
+        if i == 4:
+            write_png(os.path.join(root, mask_path), np.zeros((h, 8), np.uint8))
+        else:
+            write_random_png(os.path.join(root, mask_path), h=h, channels=1,
+                             seed=10 + i)
+        annot.append({
+            "sequence_name": seq,
+            "image": {"path": im_path, "size": [h, 8]},
+            "mask": {"path": mask_path, "mass": 10},
+            "viewpoint": {
+                "R": np.eye(3).tolist(), "T": [0.1 * i, 0.0, 3.0],
+                "principal_point": [0.1, -0.05], "focal_length": [2.0, 2.1],
+            },
+        })
+        split["known_frames" if i < 3 else "unseen_frames"].append(
+            [seq, i, im_path])
+    annot_path = os.path.join(root, "annot.jgz")
+    with gzip.open(annot_path, "wt", encoding="utf8") as f:
+        json.dump(annot, f)
+    split_path = os.path.join(root, "split.json")
+    with open(split_path, "w") as f:
+        json.dump(split, f)
+    return dict(dataset_type="co3d", datadir=root, annot_path=annot_path,
+                split_path=split_path, sequence_name=seq)
+
+
+def write_ilsh_scan(root, n=6, hw=(24, 32), inward=False):
+    """An ILSH capture (``tests/test_loaders.py:221-240``): RGB
+    ``images/``, grayscale ``mask/`` and ``poses_bounds.npy``.  Returns
+    its data block."""
+    import os
+
+    import numpy as np
+
+    os.makedirs(os.path.join(root, "images"))
+    os.makedirs(os.path.join(root, "mask"))
+    for i in range(n):
+        write_random_png(os.path.join(root, "images", f"{i:03d}.png"), *hw,
+                         seed=i)
+        write_random_png(os.path.join(root, "mask", f"{i:03d}.png"), *hw, 1,
+                         seed=20 + i)
+    np.save(os.path.join(root, "poses_bounds.npy"),
+            llff_poses_bounds(n, hw, seed=3, inward=inward))
+    return dict(dataset_type="ILSH", datadir=root)
+
+
+def write_deepvoxels_scan(root, scene="cube"):
+    """A DeepVoxels layout: ``{train,validation,test}/<scene>/{pose,rgb}``
+    (4 / 2 / 3 views) and the train split's ``intrinsics.txt``.  Returns
+    its data block (``datadir`` is ``<root>/<scene>``)."""
+    import os
+
+    import numpy as np
+
+    for split, n in (("train", 4), ("validation", 2), ("test", 3)):
+        for sub in ("pose", "rgb"):
+            os.makedirs(os.path.join(root, split, scene, sub))
+        for i in range(n):
+            th = 2 * np.pi * i / n + len(split)
+            w2c = np.eye(4)
+            w2c[:3, 3] = [np.cos(th), np.sin(th), 1.2]
+            np.savetxt(os.path.join(root, split, scene, "pose", f"{i:06d}.txt"),
+                       w2c.reshape(1, 16))
+            write_random_png(
+                os.path.join(root, split, scene, "rgb", f"{i:06d}.png"),
+                seed=100 * len(split) + i)
+    with open(os.path.join(root, "train", scene, "intrinsics.txt"), "w") as f:
+        f.write("420.0 256.0 256.0 0.\n0. 0. 0.\n0.\n1.\n512 512\n")
+    return dict(dataset_type="deepvoxels", datadir=os.path.join(root, scene))
+
+
+def data_block(**kw):
+    """A config's ``data`` block as the loaders read it."""
+    d = dict(datadir="", white_bkgd=True, half_res=False, testskip=1,
+             inverse_y=False, flip_x=False, flip_y=False, ndc=False, factor=1,
+             llffhold=8, spherify=False)
+    d.update(kw)
+    return d
+
+
+# (scan, extra data options, expected: views, train, test, image hw)
+LLFF_HW = (378, 504)  # LLFF's factor-8 images
+_LOADER_CASES = (
+    ("llff", lambda r: write_llff_scan(r, 20, LLFF_HW), {},
+     (20, 17, 3, LLFF_HW)),
+    ("llff", lambda r: write_llff_scan(r, 20, LLFF_HW), dict(factor=2),
+     (20, 17, 3, (189, 252))),
+    ("llff", lambda r: write_llff_scan(r, 12, (24, 32), inward=True),
+     dict(spherify=True, ndc=False, llffhold=0), (12, 11, 1, (24, 32))),
+    ("nsvf", lambda r: write_nsvf_scan(r), {}, (4, 3, 0, (8, 8))),
+    # Tanks & Temples trains on the 50 views nearest view 0: all four
+    ("tankstemple", lambda r: write_nsvf_scan(r, "tankstemple", True, 4, 4),
+     {}, (4, 4, 1, (8, 8))),
+    ("blendedmvs", lambda r: write_nsvf_scan(r, "blendedmvs", True), {},
+     (4, 3, 1, (8, 8))),
+    ("nerfpp", write_nerfpp_scan, {}, (6, 4, 2, (8, 8))),
+    ("co3d", write_co3d_scan, {}, (4, 3, 1, None)),
+    ("ILSH", lambda r: write_ilsh_scan(r), dict(factor=3),
+     (6, 5, 1, (8, 10))),
+    ("deepvoxels", write_deepvoxels_scan, dict(testskip=2),
+     (7, 4, 2, (8, 8))),
+)
+
+
+def _loaders_phase(np, card, repo):
+    """Phase 16: write one small scan of each remaining format and load it
+    through ``data/dataset.py:load_dataset`` on this machine (no image
+    package, no OpenCV): shapes, near / far, splits, load seconds."""
+    import shutil
+
+    from fgs_nerf_tpu_torch.config.base import Cfg
+    from fgs_nerf_tpu_torch.data.dataset import load_dataset
+
+    root = repo / "results" / "chip_smoke_loaders"
+    shutil.rmtree(root, ignore_errors=True)
+    out = []
+    for k, (dtype, write, extra, (n, n_tr, n_te, hw)) in enumerate(
+            _LOADER_CASES):
+        scan = root / f"{k:02d}_{dtype}"
+        scan.mkdir(parents=True)
+        block = data_block(**write(str(scan)), **extra)
+        t0 = time.perf_counter()
+        d = load_dataset(Cfg(dict(data=block)))
+        load_s = time.perf_counter() - t0
+        imgs = d["images"]
+        shapes = {tuple(im.shape) for im in imgs}
+        line = dict(dataset_type=dtype, options=extra, views=len(imgs),
+                    train=len(d["i_train"]), test=len(d["i_test"]),
+                    image_shapes=sorted(shapes), near=float(d["near"]),
+                    far=float(d["far"]), irregular=d["irregular_shape"],
+                    load_s=load_s)
+        out.append(line)
+        print(json.dumps({"loader": line}))
+        _check((len(imgs), len(d["i_train"]), len(d["i_test"])) == (n, n_tr,
+                                                                     n_te),
+               f"{dtype}: {line}")
+        _check(all(s[-1] == 3 for s in shapes)
+               and (hw is None or shapes == {(*hw, 3)}), f"{dtype}: {shapes}")
+        _check(np.isfinite([d["near"], d["far"]]).all()
+               and d["near"] < d["far"], f"{dtype}: near/far {line}")
+        _check(d["poses"].shape == (n, 3, 4) or d["poses"].shape == (n, 4, 4),
+               f"{dtype}: poses {d['poses'].shape}")
+        _check(len(d["Ks"]) == n and len(d["HW"]) == n
+               and d["render_poses"].shape[-2:] in ((3, 4), (4, 4)),
+               f"{dtype}: Ks / HW / render poses")
+        _check(all(float(np.min(im)) >= 0 and float(np.max(im)) <= 1
+                   for im in imgs), f"{dtype}: pixels outside [0, 1]")
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("imageio",
+                                                               "cv2"))
+    _check(not bad, f"the loaders imported {bad}")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# ---- phase 17: the --dvgo_init pipeline ----------------------------------
+
+_DVGO_CONFIG = """\
+from fgs_nerf_tpu_torch.config.base import deep_update
+from fgs_nerf_tpu_torch.config.scenes import FULL_SYNTHETIC
+
+# full_synthetic (40 views of 256 x 256) with the built-in dvgo / dvgo_model
+# widths (100^3, N_rand 8,192, sample_k 256, per-voxel learning rates) and
+# the depth cut: 16 DVGO steps, then 4 coarse steps off its checkpoint.
+# alpha_init 0.01 (the JAX package's own DVGO pipeline test) so that 16
+# steps leave a non-empty sdf_mask: at the built-in 1e-6 no voxel reaches
+# the handoff's alpha 1e-3 in so few steps.
+config = deep_update(FULL_SYNTHETIC, dict(
+    dvgo=dict(N_iters=16),
+    dvgo_model=dict(alpha_init=0.01),
+    coarse_train=dict(N_iters=4, tv_updates={}, decay_step_module={}),
+))
+"""
+
+
+def _record_dvgo_b7(torch, D, SC, calls):
+    """Record the B7 calls of a DVGO step with the grid each is the
+    backward of: each of ``D.forward``'s trilinear samples labels its
+    backward node before it runs (a pre-hook)."""
+    labels = []
+    sample = D.trilinear_sample
+    site = SC.dense_accumulate
+    names = iter(())
+
+    def labelled(grid, pts, box):
+        out = sample(grid, pts, box)
+        name = next(names)
+        out.grad_fn.register_prehook(
+            lambda grads, name=name: labels.append(name))
+        return out
+
+    def rec(*args):
+        calls.append((labels[-1] if labels else "voxel counts",
+                      _clone(args, torch)))
+        return site(*args)
+
+    def begin():
+        nonlocal names
+        names = iter(("density", "k0", "gradient field"))
+        labels.clear()
+    return _patched([(D, "trilinear_sample", labelled),
+                     (SC, "dense_accumulate", rec)]), begin
+
+
+def _dvgo_phase(torch, np, card, repo, kernels):
+    """Phase 17: ``python -m fgs_nerf_tpu_torch.run --dvgo_init 1`` in
+    process on ``_DVGO_CONFIG``: the DVGO stage, then the coarse stage off
+    its checkpoint (the final evaluation is phase 14's and is left out).
+    Every B7 call of the first DVGO step is held against its twin, timed
+    and bounded; the DVGO step is timed (ms, rays/s, peak memory, idle
+    share); a kernel step is compared with a plain-twin step.  Returns
+    (the report, B7's checked calls, launches by stage)."""
+    import shutil
+
+    from fgs_nerf_tpu_torch import run as R
+    from fgs_nerf_tpu_torch.models import density_voxel as D
+    from fgs_nerf_tpu_torch.ops import scatter as SC
+    from fgs_nerf_tpu_torch.ops.cuda import scatter_combine as B7
+    from fgs_nerf_tpu_torch.train import checkpoint as CK
+    from fgs_nerf_tpu_torch.train import density_trainer as DT
+    from fgs_nerf_tpu_torch.train import trainer as TR
+
+    run_dir = repo / "results" / "chip_smoke_dvgo"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    cfg_path = run_dir / "dvgo_config.py"
+    cfg_path.write_text(_DVGO_CONFIG)
+
+    def zero_counts():
+        for k in kernels:
+            for fn in k.launches:
+                k.launches[fn] = 0
+
+    def counts():
+        return {fn: n for k in kernels for fn, n in k.launches.items() if n}
+
+    calls, step_ms, first, stages = [], [], {}, {}
+    recording, begin = _record_dvgo_b7(torch, D, SC, calls)
+    real_make, real_stage = DT.make_density_train_step, TR.train_stage
+    real_dvgo = DT.train_density_stage
+
+    def timed_make(cfg_m, box, opts, **kw):
+        step = real_make(cfg_m, box, opts, **kw)
+
+        def run(params, opt_state, buffers, *rest):
+            if not first:
+                # the first step: its B7 calls recorded, its inputs kept
+                first.update(cfg=cfg_m, box=box, kw=kw, step=step,
+                             state=(params, opt_state, buffers, *rest))
+                begin()
+                with recording:
+                    out = step(params, opt_state, buffers, *rest)
+                torch.cuda.synchronize()
+                return out
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(params, opt_state, buffers, *rest)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+        return run
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            zero_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            stages[name] = dict(
+                result=res, wall_s=time.perf_counter() - t0,
+                launches=counts(),
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            return res
+        return run
+
+    def coarse_stage(cfg_, stage, *a, **kw):
+        return timed(stage, real_stage)(cfg_, stage, *a, **kw)
+
+    argv = ["--mode", "train", "--config", str(cfg_path), "--expname", "run",
+            "--output_dir", str(run_dir), "--device", "cuda", "--i_print", "4",
+            "--dvgo_init", "1", "--fine_training", "0", "--i_validate", "0"]
+    t0 = time.perf_counter()
+    with _patched([(DT, "make_density_train_step", timed_make),
+                   (DT, "train_density_stage", timed("dvgo", real_dvgo)),
+                   (TR, "train_stage", coarse_stage),
+                   (R, "_evaluate", lambda *a, **kw: None)]):
+        R.main(argv)
+    wall = time.perf_counter() - t0
+
+    # ---- B7's calls of the first DVGO step ---------------------------
+    # the stage's loss reads no normals, so the gradient field's sample
+    # has no backward: two calls a step (as under jax.grad)
+    step_calls = [c for c in calls if c[0] != "voxel counts"]
+    cols = sorted((c[0], c[1][1].shape[1]) for c in step_calls)
+    _check(cols == [("density", 8), ("k0", 24)],
+           f"DVGO step B7 calls {cols}")
+    checked = []
+    for label, args in step_calls:
+        rows, upd, cap = args
+        idx = rows.long()
+        r = _check_accumulate(
+            torch, "B7", B7.dense_accumulate, B7.dense_accumulate_plain,
+            args, rows,
+            lambda: torch.zeros((cap, upd.shape[1]),
+                                device=upd.device).index_add_(0, idx, upd),
+            upd.numel(), f"dvgo {label}")
+        r.update(c=upd.shape[1], cap=cap, rel_l2=_rel_l2(
+            B7.dense_accumulate(*args), B7.dense_accumulate_plain(*args)))
+        checked.append(r)
+        print(json.dumps({"kernel": "dense_accumulate", **r, "card": card}))
+    del calls[:], step_calls, args, rows, upd, idx
+    torch.cuda.empty_cache()
+
+    # ---- the DVGO step: time, profile, kernel vs plain ---------------
+    cfg_m, box, kw = first["cfg"], first["box"], first["kw"]
+    params, opt_state, buffers, *batch = first.pop("state")
+    n_rand = batch[0].shape[0]
+    timed_steps = step_ms[1:]  # the second step still allocates
+    ms = float(np.mean(timed_steps))
+    _device_breakdown(torch, lambda: first["step"](params, opt_state, buffers,
+                                                   *batch), ms, card,
+                      path="dvgo")
+    lag = DT.make_density_loss_and_grads(cfg_m, box, **{
+        k: v for k, v in kw.items()})
+    _, lk, _, gk = lag(params, buffers, *batch[:4])
+    with _patched([(SC, "dense_accumulate", B7.dense_accumulate_plain)]):
+        _, lp, _, gp = lag(params, buffers, *batch[:4])
+    vs_plain = {"loss_kernel": float(lk), "loss_plain": float(lp),
+                **{f"grad_rel_l2.{k}": _rel_l2(gk[k], gp[k]) for k in gk}}
+    print(json.dumps({"dvgo_kernel_vs_plain_step": vs_plain, "card": card}))
+    _check(abs(float(lk) - float(lp)) <= 1e-4 * abs(float(lp)), vs_plain)
+    _check(all(vs_plain[f"grad_rel_l2.{k}"] < 1e-3 for k in gk), vs_plain)
+    del params, opt_state, buffers, batch, gk, gp, first
+    torch.cuda.empty_cache()
+
+    dvgo, coarse = stages["dvgo"], stages["coarse"]
+    res = dvgo["result"]
+    ck = CK.load_checkpoint(str(run_dir / "run" /
+                                "geometry_searching_last.npz"))
+    report = {
+        "world_size": list(res.cfg_model.world_size),
+        "s_max": res.cfg_model.s_max, "sample_k": res.cfg_model.sample_k,
+        "samples_per_step": n_rand * res.cfg_model.sample_k,
+        "dvgo_wall_s": dvgo["wall_s"], "dvgo_step_ms": ms,
+        "dvgo_step_ms_all": step_ms, "dvgo_rays_per_s": n_rand / (ms / 1e3),
+        "dvgo_peak_mem_gb": dvgo["peak_mem_gb"],
+        "dvgo_launches": dvgo["launches"], "dvgo_loss": res.last_metrics,
+        "psnr_last": res.psnr_history[-1],
+        "sdf_mask_voxels": int((ck.sdf_mask > 0).sum()),
+        "coarse_wall_s": coarse["wall_s"],
+        "coarse_world_size": list(coarse["result"].cfg_model.world_size),
+        "coarse_kept_ratio": coarse["result"].kept_ratio,
+        "coarse_launches": coarse["launches"],
+        "coarse_psnr_last": coarse["result"].psnr_history[-1],
+        "coarse_peak_mem_gb": coarse["peak_mem_gb"],
+        "wall_s_total": wall, "card": card}
+    print(json.dumps({"dvgo_pipeline": report}))
+    _check(np.isfinite(res.psnr_history).all()
+           and np.isfinite(coarse["result"].psnr_history).all(),
+           "non-finite DVGO or coarse PSNR")
+    _check(set(ck.params) == {"density", "k0"}
+           and report["sdf_mask_voxels"] > 0,
+           f"DVGO checkpoint {sorted(ck.params)}, mask "
+           f"{report['sdf_mask_voxels']}")
+    _check(dvgo["launches"] == {"dense_accumulate": dvgo["launches"].get(
+        "dense_accumulate", 0)} and dvgo["launches"]["dense_accumulate"]
+           >= 2 * 16, f"DVGO launches {dvgo['launches']}")
+    for fn in ("window_gather_cm", "dense_accumulate_cm", "fused_shade_fwd",
+               "fused_shade_bwd"):
+        _check(coarse["launches"].get(fn, 0) > 0,
+               f"coarse after DVGO: {fn} not launched ({coarse['launches']})")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    return report, checked, {"dvgo": dvgo["launches"],
+                             "dvgo_coarse": coarse["launches"]}
+
+
+# ---- phase 18: the TensoRF k0 on the sorted coarse step ------------------
+
+
+def _tensorf_phase(torch, np, card, dev, batch, n_rand, kernels):
+    """Phase 18: the ``bench.py`` sorted coarse step with a TensoRF k0
+    (``grid_type='tensorf'``, 8 components, densified every step): timed
+    with its launches, then a kernel step against a plain-twin step."""
+    from fgs_nerf_tpu_torch.models import sdf_voxel as M
+    from fgs_nerf_tpu_torch.ops import scatter as SC
+    from fgs_nerf_tpu_torch.ops import sorted_cm as ST
+    from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
+    from fgs_nerf_tpu_torch.ops.cuda import scatter_combine as B7
+    from fgs_nerf_tpu_torch.ops.cuda import scatter_combine_cm as B2
+    from fgs_nerf_tpu_torch.ops.cuda import tap_serve_cm as B56
+    from fgs_nerf_tpu_torch.ops.cuda import window_gather_cm as B1
+    from fgs_nerf_tpu_torch.optim.masked_adam import init_state
+
+    cfg, _, params, lrs, s_val, loss_and_grads, step = _setup(
+        torch, M, "coarse", "sorted", dev, n_rand, grid_type="tensorf")
+    _check(isinstance(params["k0"], dict) and M.k0_dense(params, cfg).shape
+           == (*cfg.world_size, cfg.k0_dim), "TensoRF k0 factors")
+    for k in kernels:
+        for fn in k.launches:
+            k.launches[fn] = 0
+    state = (params, init_state(params))
+    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(N_WARMUP + 4):
+        if i == N_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        p, o, metrics = step(*state, {}, *batch, s_val, lrs, 1.0)
+        state = (p, o)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / 4
+    launches = {fn: n for k in kernels for fn, n in k.launches.items() if n}
+    losses = [float(x) for x in losses]
+    line = {"metric": "train_rays_per_s_tensorf_coarse", "value": n_rand / dt,
+            "step_ms": dt * 1e3, "steps": 4, "world_size": cfg.world_size,
+            "tensorf_n_comp": cfg.tensorf_n_comp, "losses": losses,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches, "card": card}
+    print(json.dumps(line))
+    _check(all(np.isfinite(losses)), losses)
+    for fn in ("window_gather_cm", "dense_accumulate_cm", "fused_shade_fwd",
+               "fused_shade_bwd"):
+        _check(launches.get(fn, 0) == N_WARMUP + 4,
+               f"TensoRF coarse: {fn} launches {launches}")
+    report = _step_vs_plain(torch, loss_and_grads, step, state, {}, batch,
+                            s_val, lrs,
+                            _plain_twins(ST, FS, SC, B1, B2, B56, B7))
+    _check(sum(k.startswith("grad_rel_l2.k0.") for k in report) == 7,
+           sorted(report))
+    print(json.dumps({"tensorf_kernel_vs_plain_step": report, "card": card}))
+    del state, params
+    torch.cuda.empty_cache()
+    return line, launches
+
+
 def main():
     import torch
 
@@ -2056,7 +2758,8 @@ def main():
 
     # B1: serve
     results["window_gather_cm"] = _check_call(torch, "window_gather_cm",
-                                              captured["b1"], "coarse")
+                                              captured["b1"], "coarse",
+                                              grid3=cfg.world_size)
 
     # B2: dense accumulate
     rows_c, w8_2, g2, n_rows = captured["b2"]
@@ -2172,6 +2875,19 @@ def main():
                                      prepare=_write_dtu, eval_lpips=False,
                                      validate=False)
 
+    # ---- 16. the remaining loaders, 17. --dvgo_init, 18. TensoRF ------
+    t_new = time.perf_counter()
+    loaders = _loaders_phase(np, card, repo)
+    dvgo, dvgo_calls, dvgo_launches = _dvgo_phase(torch, np, card, repo,
+                                                  kernels)
+    torch.cuda.empty_cache()
+    tensorf, tensorf_launches = _tensorf_phase(torch, np, card, dev, batch,
+                                               n_rand, kernels)
+    print(json.dumps({"phases_16_18_s": time.perf_counter() - t_new,
+                      "loaders": len(loaders),
+                      "dvgo_step_ms": dvgo["dvgo_step_ms"],
+                      "tensorf_step_ms": tensorf["step_ms"]}))
+
     rows_out = []
     for name, kern, replaces, main_call in (
         ("window_gather_cm", B1.KERNEL,
@@ -2195,7 +2911,11 @@ def main():
                    "fine": fine_launches.get(name, 0),
                    "fine_masked": masked_launches.get(name, 0),
                    **{p.replace(" ", "_"): c.get(_LAUNCHER_OF[name], 0)
-                      for p, c in lattice_launches.items()}}
+                      for p, c in lattice_launches.items()},
+                   "dvgo_coarse": dvgo_launches["dvgo_coarse"].get(
+                       _LAUNCHER_OF[name], 0),
+                   "tensorf_coarse": tensorf_launches.get(
+                       _LAUNCHER_OF[name], 0)}
         rows_out.append({
             "name": name, "route": "cuda", "source": kern.source_rel,
             "replaces": replaces,
@@ -2221,6 +2941,8 @@ def main():
     main = next(c for c in b7_calls if c["path"] == "fine field")
     by_path = {p.replace(" ", "_"): c.get("dense_accumulate", 0)
                for p, c in lattice_launches.items()}
+    by_path["dvgo"] = dvgo_launches["dvgo"].get("dense_accumulate", 0)
+    b7_calls = b7_calls + dvgo_calls
     rows_out.append({
         "name": "dense_accumulate", "route": "cuda",
         "source": B7.KERNEL.source_rel,
@@ -2233,7 +2955,8 @@ def main():
         "launches_by_path": by_path,
         "launches_per_step": {
             "lattice_coarse": by_path["lattice_coarse"] / (N_WARMUP + N_STEPS),
-            "lattice_fine": by_path["lattice_fine"] / (N_WARMUP + N_FINE_STEPS)},
+            "lattice_fine": by_path["lattice_fine"] / (N_WARMUP + N_FINE_STEPS),
+            "dvgo": len(dvgo_calls)},
         "calls": b7_calls,
     })
     for name, replaces in (

@@ -1,9 +1,12 @@
 """Carry parameters and Adam state across the JAX / PyTorch boundary.
 
 The public layouts are the JAX package's: ``sdf [X, Y, Z, 1]``,
-``k0 [X, Y, Z, k0_dim]``, ``refnet {w{i} [in, out], b{i} [out]}``,
-``s_val [1]``, all float32.  Both directions go through numpy, so this
-module imports no JAX.
+``k0 [X, Y, Z, k0_dim]`` (or, for ``grid_type='tensorf'``, the factor
+dict ``{xy_plane, xz_plane, yz_plane, x_vec, y_vec, z_vec[, f_vec]}``),
+``refnet {w{i} [in, out], b{i} [out]}``, ``s_val [1]``, the DVGO
+stage's ``density [X, Y, Z, 1]`` and ``k0 [X, Y, Z, 3]``, all float32;
+nested dicts are carried whole.  Both directions go through numpy, so
+this module imports no JAX.
 """
 from __future__ import annotations
 

@@ -15,7 +15,8 @@ coarse -> fine warm start).
 
 Parameters are a flat dict with the JAX package's names and layouts:
   sdf    [X, Y, Z, 1]
-  k0     [X, Y, Z, k0_dim]
+  k0     [X, Y, Z, k0_dim], or the TensoRF factor dict
+         (``grid_type='tensorf'``, ``core/grids.py``)
   refnet {w0 [in, out], b0 [out], ...}
   rgbnet {w0 [in, out], b0 [out], ...}   (fine stage only)
   s_val  [1]
@@ -30,6 +31,9 @@ import torch
 import torch.utils.checkpoint
 
 from fgs_nerf_tpu_torch.core.box import SceneBox, grid_resolution, max_samples_per_ray
+from fgs_nerf_tpu_torch.core.grids import (
+    init_tensorf_params, tensorf_densify, tensorf_scale,
+)
 from fgs_nerf_tpu_torch.device import DeviceLike, resolve_device
 from fgs_nerf_tpu_torch.models.mlp import (
     init_mlp, mlp_apply, refnet_dims, rgbnet_dims,
@@ -200,11 +204,13 @@ def ball_init_sdf(world_size, stage: str, device: DeviceLike = None) -> torch.Te
 
 def init_params(generator: torch.Generator, cfg: SDFModelConfig,
                 device: DeviceLike = None) -> Dict[str, Any]:
-    """Stage parameters (`sdf_voxel.py:252-276`), dense k0 only; the fine
-    stage adds ``rgbnet``.  ``generator`` must live on ``device``."""
+    """Stage parameters (`sdf_voxel.py:252-276`); the fine stage adds
+    ``rgbnet``.  k0 is a zero dense grid, or for ``grid_type='tensorf'``
+    the factor dict of ``core/grids.py``, drawn after the MLPs.
+    ``generator`` must live on ``device``."""
     dev = resolve_device(device)
-    if cfg.grid_type != "dense":
-        raise NotImplementedError(f"grid_type {cfg.grid_type!r} is not ported")
+    if cfg.grid_type not in ("dense", "tensorf"):
+        raise ValueError(f"unknown grid_type {cfg.grid_type!r}")
     params = {
         "sdf": ball_init_sdf(cfg.world_size, cfg.stage, dev),
         "k0": torch.zeros((*cfg.world_size, cfg.k0_dim), dtype=torch.float32,
@@ -222,13 +228,19 @@ def init_params(generator: torch.Generator, cfg: SDFModelConfig,
             rgbnet_dims(cfg.rgbnet_in_dim(), cfg.rgbnet_width, cfg.rgbnet_depth),
             dev,
         )
+    if cfg.grid_type == "tensorf":
+        params["k0"] = init_tensorf_params(generator, cfg.k0_dim,
+                                           cfg.world_size,
+                                           cfg.tensorf_n_comp, device=dev)
     return params
 
 
 def k0_dense(params: Dict[str, Any], cfg: SDFModelConfig) -> torch.Tensor:
-    """The k0 grid as dense [X, Y, Z, k0_dim] (`sdf_voxel.py:289-297`)."""
-    if cfg.grid_type != "dense":
-        raise NotImplementedError(f"grid_type {cfg.grid_type!r} is not ported")
+    """The k0 grid as dense [X, Y, Z, k0_dim] (`sdf_voxel.py:289-297`):
+    the grid itself, or the TensoRF factors densified (every step;
+    autograd carries the gradients back to the factors)."""
+    if cfg.grid_type == "tensorf":
+        return tensorf_densify(params["k0"], cfg.k0_dim)
     return params["k0"]
 
 
@@ -354,14 +366,16 @@ def maskout_near_cam_vox(params: Dict[str, Any], cam_o: torch.Tensor,
     return params
 
 
-def voxel_count_views(cfg: SDFModelConfig, box: SceneBox,
+def voxel_count_views(cfg, box: SceneBox,
                       rays_o_views: np.ndarray, rays_d_views: np.ndarray,
                       near: float, far: float, stepsize: float,
                       downrate: int = 1) -> torch.Tensor:
     """Per-voxel count of views whose rays deposit more than 1 of
     accumulated trilinear weight (`sdf_voxel.py:434-480`).  The weight is
     the gradient of ``sum(trilinear(ones, pts))`` w.r.t. the grid, i.e.
-    the trilinear backward (kernel B7 on the card)."""
+    the trilinear backward (kernel B7 on the card).  ``cfg`` is any
+    config with ``world_size`` and ``voxel_size``: an ``SDFModelConfig``
+    or the DVGO stage's ``DensityModelConfig``."""
     dev = box.xyz_min.device
     n_samples = int(np.linalg.norm(np.asarray(cfg.world_size) + 1)
                     / stepsize) + 1
@@ -394,12 +408,13 @@ def voxel_count_views(cfg: SDFModelConfig, box: SceneBox,
 def scale_volume_grid(params: Dict[str, Any],
                       new_cfg: SDFModelConfig) -> Dict[str, Any]:
     """Trilinear upsample of sdf + k0 to the new rung's resolution
-    (`sdf_voxel.py:488-501`), dense k0 only."""
-    if new_cfg.grid_type != "dense":
-        raise NotImplementedError(f"grid_type {new_cfg.grid_type!r} is not ported")
+    (`sdf_voxel.py:488-501`); TensoRF factors are resized one by one."""
     params = dict(params)
     params["sdf"] = resize_trilinear(params["sdf"], new_cfg.world_size)
-    params["k0"] = resize_trilinear(params["k0"], new_cfg.world_size)
+    if new_cfg.grid_type == "tensorf":
+        params["k0"] = tensorf_scale(params["k0"], new_cfg.world_size)
+    else:
+        params["k0"] = resize_trilinear(params["k0"], new_cfg.world_size)
     return params
 
 

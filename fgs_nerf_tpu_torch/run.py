@@ -37,7 +37,7 @@ def config_parser() -> argparse.ArgumentParser:
     p.add_argument("--mode", type=str, default="train", help="train | eval")
     p.add_argument("--dataset_type", type=str, default="")
     p.add_argument("--dvgo_init", default=False, type=_flag,
-                   help="DVGO density geometry search (not ported: raises)")
+                   help="geometry search with the DVGO density model")
     p.add_argument("--geometry_searching", default=True, type=_flag)
     p.add_argument("--coarse_training", default=True, type=_flag)
     p.add_argument("--fine_training", default=True, type=_flag)

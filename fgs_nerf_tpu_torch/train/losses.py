@@ -99,7 +99,9 @@ def compute_losses(render: Dict[str, Any], target: torch.Tensor,
             loss = loss + tv_gate * w.weight_tv_density * tv_sdf
             losses["tv_sdf"] = tv_sdf
             if w.weight_tv_k0 > 0:
-                tv_k0 = k0_tv_loss(params["k0"], nonempty_mask)
+                from fgs_nerf_tpu_torch.models.sdf_voxel import k0_dense
+
+                tv_k0 = k0_tv_loss(k0_dense(params, cfg_model), nonempty_mask)
                 loss = loss + tv_gate * w.weight_tv_k0 * tv_k0
                 losses["tv_k0"] = tv_k0
 

@@ -24,11 +24,10 @@ def run_training(cfg, data_dict: Dict, out_dir: str, *,
                  dvgo_init: bool = False,
                  device: DeviceLike = None) -> Dict[str, StageResult]:
     """Train the requested stages on ``device`` (None: the CUDA card)
-    (`train/pipeline.py:19-83`, without the device mesh: one device)."""
-    if dvgo_init:
-        raise NotImplementedError(
-            "dvgo_init (the DVGO density geometry search) is not ported yet "
-            "(ROADMAP item A8)")
+    (`train/pipeline.py:19-83`, without the device mesh: one device).
+    ``dvgo_init`` trains the geometry search with the DVGO density model
+    (``train/density_trainer.py``); its checkpoint feeds the later stages
+    as an SDF geometry checkpoint would."""
     log = logger or logging.getLogger("fgs")
     dev = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
@@ -43,10 +42,22 @@ def run_training(cfg, data_dict: Dict, out_dir: str, *,
     if "geometry_searching" in stages:
         xyz_min, xyz_max = bbox_lib.compute_bbox_by_cam_frustrm(cfg, data_dict)
         log.info(f"frustum bbox: {xyz_min} .. {xyz_max}")
-        results["geometry_searching"] = trainer.train_stage(
-            cfg, "geometry_searching", data_dict, xyz_min, xyz_max, out_dir,
-            n_iters_override=n_iters_override.get("geometry_searching"),
-            **common)
+        if dvgo_init:
+            # `run.py:30-36`, `coarse_geometry_searching.py:105-380`
+            from fgs_nerf_tpu_torch.train.density_trainer import (
+                train_density_stage,
+            )
+
+            results["geometry_searching"] = train_density_stage(
+                cfg, data_dict, xyz_min, xyz_max, out_dir, logger=log,
+                i_print=i_print, device=dev,
+                n_iters_override=n_iters_override.get("geometry_searching"))
+        else:
+            results["geometry_searching"] = trainer.train_stage(
+                cfg, "geometry_searching", data_dict, xyz_min, xyz_max,
+                out_dir,
+                n_iters_override=n_iters_override.get("geometry_searching"),
+                **common)
 
     if "coarse" in stages or "fine" in stages:
         xyz_min_t, xyz_max_t = bbox_lib.compute_bbox_by_coarse_geo(geo_ckpt)

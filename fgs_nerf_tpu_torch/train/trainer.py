@@ -70,6 +70,32 @@ def make_param_opts(params: Dict[str, Any], cfg_train) -> Dict[str, ParamOpts]:
     return {name: ParamOpts(skip_zero_grad=name in skip) for name in params}
 
 
+def param_grads(loss: torch.Tensor, p: Dict[str, Any]) -> Dict[str, Any]:
+    """d loss / d p for a params tree whose leaves require grad; leaves
+    the loss does not reach get zeros (as ``jax.grad`` gives them)."""
+    leaves = list(tree_leaves(p))
+    grad_leaves = torch.autograd.grad(loss, leaves, allow_unused=True)
+    it = iter(g if g is not None else torch.zeros_like(x)
+              for g, x in zip(grad_leaves, leaves))
+    return tree_map(lambda _: next(it), p)
+
+
+def weight_metrics(w_full: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The step's render-weight metrics (`train/trainer.py:195-203`):
+    the mean per-ray max and sum over the rays where they are positive,
+    and the share of rays with any weight."""
+    wm = torch.amax(w_full, dim=-1)
+    ws = torch.sum(w_full, dim=-1)
+    one = torch.ones((), dtype=torch.float32, device=wm.device)
+
+    def frac_mean(v):
+        return torch.sum(v * (v > 0)) / torch.maximum(
+            torch.sum(v > 0).float(), one)
+
+    return {"wmax_mean": frac_mean(wm), "wsum_mean": frac_mean(ws),
+            "w_nonzero_frac": torch.mean((ws > 0).float())}
+
+
 def make_loss_and_grads(cfg_model: M.SDFModelConfig, box: SceneBox,
                         loss_w: LossWeights, *, near: float, bg: float,
                         sdf_tv: float, smooth_grad_tv: float,
@@ -88,12 +114,7 @@ def make_loss_and_grads(cfg_model: M.SDFModelConfig, box: SceneBox,
                                 loss_w, sdf_tv=sdf_tv,
                                 smooth_grad_tv=smooth_grad_tv, tv_on=tv_on,
                                 nonempty_mask=nonempty)
-        leaves = list(tree_leaves(p))
-        grad_leaves = torch.autograd.grad(losses["loss"], leaves,
-                                          allow_unused=True)
-        it = iter(g if g is not None else torch.zeros_like(x)
-                  for g, x in zip(grad_leaves, leaves))
-        return render, losses, tree_map(lambda _: next(it), p)
+        return render, losses, param_grads(losses["loss"], p)
 
     return fn
 
@@ -140,21 +161,12 @@ def make_train_step(cfg_model: M.SDFModelConfig, box: SceneBox,
                     s_val, dtype=torch.float32,
                     device=params["s_val"].device).reshape(1).clone()
 
-            w_full = render["weights"]
-            wm = torch.amax(w_full, dim=-1)
-            ws = torch.sum(w_full, dim=-1)
-            one = torch.ones((), dtype=torch.float32, device=wm.device)
-
-            def frac_mean(v):
-                return torch.sum(v * (v > 0)) / torch.maximum(
-                    torch.sum(v > 0).float(), one)
-
+            one = torch.ones((), dtype=torch.float32,
+                             device=render["weights"].device)
             metrics = {
                 "loss": losses["loss"].detach(),
                 "mse": losses["mse"].detach(),
-                "wmax_mean": frac_mean(wm),
-                "wsum_mean": frac_mean(ws),
-                "w_nonzero_frac": torch.mean((ws > 0).float()),
+                **weight_metrics(render["weights"]),
                 "mask_frac": torch.sum(render["live"]) / torch.maximum(
                     torch.sum(render["valid"]).float(), one),
                 "overflow_frac": torch.mean(render["overflow"].float()),

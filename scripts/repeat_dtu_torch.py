@@ -1,0 +1,411 @@
+"""Does the DTU pipeline of ``chip_smoke.py`` (phase 15) train to the same
+values from run to run?  Runs that phase (the CLI's three stages on the
+built-in ``dtu`` config over the written 49-view sphere scan, depth cut,
+then the test renders, the 512^3 mesh and its Chamfer) ``--runs`` times
+in one process, with the checkout ``--tree`` (default: this one), and
+prints per run one JSON line: every training step's loss by stage and
+each stage's last PSNR, with the card's name and power limit; the
+phase's own ``dtu_eval`` line before it holds the Chamfer.  Compare two
+checkouts on one card by calling it once per tree, in turns (parent,
+change, change, parent):
+
+    python scripts/repeat_dtu_torch.py [--tree DIR] [--runs N] [--poison]
+        [--deterministic] [--geometry_steps K [--after_phase [P]]]
+        [--stress R] [--trace_ops]
+
+``--poison`` fills the caching allocator's free memory with NaN before
+every run after the first (tensors that read memory they never wrote
+then turn NaN); ``--deterministic`` runs under cuDNN's deterministic
+algorithms and ``torch.use_deterministic_algorithms(True,
+warn_only=True)`` (with ``CUBLAS_WORKSPACE_CONFIG=:4096:8``).
+``--geometry_steps K`` runs only the first K steps of the geometry stage
+(``train/pipeline.py:run_training`` on the same loaded scan each run)
+and also holds every input of every step (parameters, optimizer state,
+batch, scalars) bit for bit against the first run's, naming those that
+differ; with ``--after_phase [P]`` the first P runs (default 1) are the
+whole phase (the first one's geometry steps are the reference), so the
+later runs follow their coarse and fine stages, evaluation and mesh in
+the process.  ``--stress R`` runs every kernel call of the phase R more
+times on the spot, on its own inputs, and lists the calls whose repeats
+differ from the first result (a race shows as a rare difference); in
+the first repeat every ``torch.empty`` / ``torch.empty_like`` buffer
+starts filled with NaN (-7 for integers), so an output element or a
+scratch value that the kernel does not write shows too.
+``--trace_ops`` checksums the inputs and outputs of every PyTorch op of
+every train step (a ``TorchDispatchMode``; an exact integer sum of each
+tensor's bits) and, from the second run on, prints the first op whose
+checksums differ from the first run's, with its stage, step and
+position, the ops before it, and its differing inputs: shape, dtype and
+the kernel call site that wrote the tensor when a kernel did (kernels
+write outside the dispatcher).
+"""
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--runs", type=int, default=1)
+    ap.add_argument("--poison", action="store_true")
+    ap.add_argument("--deterministic", action="store_true")
+    ap.add_argument("--geometry_steps", type=int, default=0)
+    ap.add_argument("--after_phase", type=int, nargs="?", const=1, default=0)
+    ap.add_argument("--stress", type=int, default=0)
+    ap.add_argument("--trace_ops", action="store_true")
+    args = ap.parse_args()
+    if args.deterministic:
+        import os
+
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    tree = Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as CS
+    from fgs_nerf_tpu_torch.ops.cuda import build
+    from fgs_nerf_tpu_torch.ops.cuda import fused_mlp_cm as B89
+    from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
+    from fgs_nerf_tpu_torch.ops.cuda import scatter_combine as B7
+    from fgs_nerf_tpu_torch.ops.cuda import scatter_combine_cm as B2
+    from fgs_nerf_tpu_torch.ops.cuda import tap_serve_cm as B56
+    from fgs_nerf_tpu_torch.ops.cuda import window_gather_cm as B1
+    from fgs_nerf_tpu_torch.train import trainer as TR
+
+    if not torch.cuda.is_available():
+        raise SystemExit("repeat_dtu_torch: needs a CUDA card")
+    kernels = (B1.KERNEL, B2.KERNEL, FS.KERNEL, B56.KERNEL, B7.KERNEL,
+               B89.KERNEL)
+    build.build_all(kernels)
+    card = CS._card_line()
+    losses = []
+    real_make = TR.make_train_step
+
+    def logged_make(cfg_m, *a, **kw):
+        step = real_make(cfg_m, *a, **kw)
+
+        def run(*sa):
+            out = step(*sa)
+            losses[-1].setdefault(cfg_m.stage, []).append(
+                float(out[2]["loss"]))
+            return out
+        return run
+
+    TR.make_train_step = logged_make
+    traces = _trace_steps(torch, TR) if args.trace_ops else None
+    stressed = _stress_sites(torch, args.stress) if args.stress else None
+    if args.geometry_steps:
+        return _geometry_runs(args, torch, np, CS, TR, tree, card, losses,
+                              kernels)
+    if args.deterministic:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    for i in range(args.runs):
+        if args.poison and i:
+            _poison(torch)
+        losses.append({})
+        t0 = time.perf_counter()
+        try:
+            report, _ = CS._pipeline_phase(torch, np, card, tree, kernels,
+                                           CS._DTU_CONFIG, label="dtu",
+                                           prepare=CS._write_dtu,
+                                           eval_lpips=False, validate=False)
+            error = None
+        except RuntimeError as e:  # a failed check: keep the losses
+            report, error = {}, str(e)[:500]
+        if traces is not None:
+            runs_ops = traces["runs"]
+            runs_ops.append(traces.pop("current"))
+            traces["current"] = []
+            if len(runs_ops) > 1:
+                print(json.dumps({"run": i, "first_differing_op":
+                                  _first_difference(runs_ops[0],
+                                                    runs_ops[-1])}))
+        if stressed is not None:
+            print(json.dumps({"run": i, "stress": args.stress,
+                              "calls": stressed["calls"],
+                              "differing": stressed["differing"][:20],
+                              "n_differing": len(stressed["differing"])}))
+            stressed["calls"], stressed["differing"] = 0, []
+        print(json.dumps({
+            "tree": str(tree), "run": i, "s": time.perf_counter() - t0,
+            "error": error,
+            "poisoned": bool(args.poison and i),
+            "deterministic": args.deterministic, "losses": losses[-1],
+            "psnr_last": {k: v["psnr_last"] for k, v in report.items()},
+            "card": card}))
+
+
+def _geometry_runs(args, torch, np, CS, TR, tree, card, losses, kernels):
+    """``--geometry_steps``: the first K geometry steps on the phase's
+    scan, run after run, every step input held against the first run."""
+    from fgs_nerf_tpu_torch.config.base import load_config
+    from fgs_nerf_tpu_torch.data.dataset import load_dataset
+    from fgs_nerf_tpu_torch.train.pipeline import run_training
+
+    run_dir = tree / "results" / "repeat_dtu"
+    run_dir.mkdir(parents=True, exist_ok=True)
+    data_argv = CS._write_dtu(run_dir)
+    (run_dir / "config.py").write_text(CS._DTU_CONFIG)
+    cfg = load_config(str(run_dir / "config.py"))
+    cfg["data"]["datadir"] = data_argv[1]
+    data = load_dataset(cfg)
+    first_inputs, seen = [], []
+    real_make = TR.make_train_step
+
+    def checked_make(cfg_m, *a, **kw):
+        step = real_make(cfg_m, *a, **kw)
+
+        def run(*sa):
+            if cfg_m.stage != "geometry_searching":
+                return step(*sa)
+            flat = {}
+            for name, v in zip(("params", "opt", "buffers", "rays_o",
+                                "rays_d", "viewdirs", "target", "s_val",
+                                "lrs", "tv_on"), sa):
+                if name == "opt":
+                    v = {"step": v.step, "m": v.exp_avg, "v": v.exp_avg_sq}
+                flat.update(_leaves(v, name))
+            k = len(seen[-1])
+            if len(losses) == 1:
+                first_inputs.append({n: t.detach().cpu().clone()
+                                     for n, t in flat.items()})
+            else:
+                ref = first_inputs[k]
+                seen[-1].append(sorted(
+                    n for n, t in flat.items()
+                    if n not in ref or not torch.equal(t.detach().cpu(),
+                                                       ref[n])))
+                return step(*sa)
+            seen[-1].append([])
+            return step(*sa)
+        return run
+
+    TR.make_train_step = checked_make
+    for i in range(args.runs):
+        if args.poison and i:
+            _poison(torch)
+        losses.append({})
+        seen.append([])
+        if i < args.after_phase:
+            CS._pipeline_phase(torch, np, card, tree, kernels,
+                               CS._DTU_CONFIG, label="dtu",
+                               prepare=CS._write_dtu, eval_lpips=False,
+                               validate=False)
+            losses[-1] = {"geometry_searching":
+                          losses[-1]["geometry_searching"][
+                              :args.geometry_steps]}
+        else:
+            run_training(cfg, data, str(run_dir / f"run{i}"),
+                         stages=("geometry_searching",),
+                         n_iters_override={"geometry_searching":
+                                           args.geometry_steps},
+                         i_print=2, device="cuda")
+        print(json.dumps({
+            "tree": str(tree), "run": i, "geometry_steps": args.geometry_steps,
+            "poisoned": bool(args.poison and i),
+            "deterministic": args.deterministic, "losses": losses[-1],
+            "inputs_differing_by_step": seen[-1], "card": card}))
+
+
+def _leaves(tree, prefix):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_leaves(v, f"{prefix}.{k}"))
+        return out
+    if hasattr(tree, "detach"):
+        return {prefix: tree}
+    return {prefix: __import__("torch").as_tensor(tree)}
+
+
+def _trace_steps(torch, TR):
+    """Wrap the train step so that every PyTorch op it runs is recorded as
+    (stage, step, op, input checksums, output checksums)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    traces = {"runs": [], "current": []}
+
+    def checksum(t):
+        if not isinstance(t, torch.Tensor) or t.numel() == 0:
+            return None
+        if t.dtype.is_floating_point:
+            bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+                t.element_size()]
+            t = t.contiguous().view(bits)
+        return t.to(torch.int64).sum()
+
+    def flat(x):
+        if isinstance(x, (list, tuple)):
+            return [t for v in x for t in flat(v)]
+        if isinstance(x, dict):
+            return [t for v in x.values() for t in flat(v)]
+        return [x] if isinstance(x, torch.Tensor) else []
+
+    written = {}  # storage pointer -> the kernel site that wrote it
+
+    class Trace(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            with torch.utils._python_dispatch._disable_current_modes():
+                tins = flat(args) + flat(kwargs or {})
+                ins = [checksum(t) for t in tins]
+                # a new uninitialized buffer has no value to compare
+                outs = [None if "empty" in str(func) else checksum(t)
+                        for t in flat(out)]
+                meta = [(list(t.shape), str(t.dtype),
+                         written.get(t.untyped_storage().data_ptr()))
+                        for t in tins]
+            self.ops.append((str(func), ins, outs, meta))
+            return out
+
+    from fgs_nerf_tpu_torch.ops import scatter as SC
+    from fgs_nerf_tpu_torch.ops import sorted_cm as ST
+    from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
+
+    def site(name, fn):
+        def run(*a):
+            out = fn(*a)
+            for t in flat(out):
+                written[t.untyped_storage().data_ptr()] = name
+            return out
+        return run
+
+    for mod, names in ((ST, ("window_gather_cm", "dense_accumulate_cm",
+                             "tap_window_serve_cm",
+                             "tap_dense_accumulate_cm")),
+                       (FS, ("fused_shade_cm_fwd", "fused_shade_cm_bwd")),
+                       (SC, ("dense_accumulate",))):
+        for name in names:
+            setattr(mod, name, site(name, getattr(mod, name)))
+
+    real_make = TR.make_train_step
+
+    def traced_make(cfg_m, *a, **kw):
+        step = real_make(cfg_m, *a, **kw)
+        n = [0]
+
+        def run(*sa):
+            mode = Trace()
+            with mode:
+                out = step(*sa)
+            written.clear()
+            sums = [c for _, ins, outs, _ in mode.ops for c in ins + outs
+                    if c is not None]
+            # one copy for the checksums on the card, item() for the rest
+            dev = [c for c in sums if c.is_cuda]
+            dev = iter(torch.stack(dev).cpu().tolist() if dev else [])
+            it = iter([next(dev) if c.is_cuda else int(c) for c in sums])
+            ops = [(name, [None if c is None else next(it) for c in ins],
+                    [None if c is None else next(it) for c in outs], meta)
+                   for name, ins, outs, meta in mode.ops]
+            traces["current"].append((cfg_m.stage, n[0], ops))
+            n[0] += 1
+            return out
+        return run
+
+    TR.make_train_step = traced_make
+    return traces
+
+
+def _first_difference(ref, run):
+    """The first op of ``run`` whose checksums differ from ``ref``'s."""
+    for (st, k, ops_a), (_, _, ops_b) in zip(ref, run):
+        for j, (a, b) in enumerate(zip(ops_a, ops_b)):
+            if a[:3] != b[:3]:
+                return {"stage": st, "step": k, "op_index": j,
+                        "op": b[0], "op_ref": a[0],
+                        "inputs_differ": a[1] != b[1],
+                        "outputs_differ": a[2] != b[2],
+                        "differing_inputs": [
+                            b[3][i] for i, (x, y) in enumerate(zip(a[1], b[1]))
+                            if x != y],
+                        "ops_before": [o[0] for o in ops_b[max(0, j - 4):j]],
+                        "ops_in_step": len(ops_b)}
+        if len(ops_a) != len(ops_b):
+            return {"stage": st, "step": k, "ops": [len(ops_a), len(ops_b)]}
+    return None
+
+
+def _stress_sites(torch, repeats):
+    """Wrap every kernel call site so that each call runs ``repeats`` more
+    times on its inputs and any repeat that differs from the first
+    result is listed (call index, site, input shapes, largest
+    difference)."""
+    from fgs_nerf_tpu_torch.ops import scatter as SC
+    from fgs_nerf_tpu_torch.ops import sorted_cm as ST
+    from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
+
+    state = {"calls": 0, "differing": []}
+
+    def flat(x):
+        if isinstance(x, (list, tuple)):
+            return [t for v in x for t in flat(v)]
+        return [x] if isinstance(x, torch.Tensor) else []
+
+    real_empty, real_empty_like = torch.empty, torch.empty_like
+
+    def filled(t):
+        return t.fill_(float("nan") if t.dtype.is_floating_point else -7)
+
+    def poisoned(fn, *a):
+        torch.empty = lambda *x, **k: filled(real_empty(*x, **k))
+        torch.empty_like = lambda *x, **k: filled(real_empty_like(*x, **k))
+        try:
+            return fn(*a)
+        finally:
+            torch.empty, torch.empty_like = real_empty, real_empty_like
+
+    def wrap(name, fn):
+        def run(*a):
+            out = fn(*a)
+            first = [t.clone() for t in flat(out)]
+            state["calls"] += 1
+            for r in range(repeats):
+                again = flat(poisoned(fn, *a) if r == 0 else fn(*a))
+                if not all(torch.equal(x, y) for x, y in zip(first, again)):
+                    state["differing"].append({
+                        "call": state["calls"], "site": name, "repeat": r,
+                        "shapes": [list(t.shape) for t in flat(a)],
+                        "max_abs": max(float((x - y).abs().max())
+                                       for x, y in zip(first, again))})
+                    break
+            return out
+        return run
+
+    for mod, names in ((ST, ("window_gather_cm", "dense_accumulate_cm",
+                             "tap_window_serve_cm",
+                             "tap_dense_accumulate_cm")),
+                       (FS, ("fused_shade_cm_fwd", "fused_shade_cm_bwd")),
+                       (SC, ("dense_accumulate",))):
+        for name in names:
+            setattr(mod, name, wrap(name, getattr(mod, name)))
+    return state
+
+
+def _poison(torch):
+    """Fill the caching allocator's free memory with NaN: 1 GiB blocks for
+    the large pool until 4 GiB of the card stay free, then 1 MiB blocks
+    for the small pool; all are dropped without ``empty_cache``, so the
+    next allocations reuse them as they are."""
+    held = []
+    while torch.cuda.mem_get_info()[0] > 4 << 30:
+        held.append(torch.full((1 << 28,), float("nan"), device="cuda"))
+    held += [torch.full((1 << 18,), float("nan"), device="cuda")
+             for _ in range(512)]
+    torch.cuda.synchronize()
+    del held
+
+
+if __name__ == "__main__":
+    main()

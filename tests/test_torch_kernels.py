@@ -454,6 +454,58 @@ def test_b7_matches_plain(cuda, case, c):
     assert torch.equal(got, B7.dense_accumulate(r, u, cap))
 
 
+def test_b7_at_dvgo_shapes(cuda):
+    """B7 on the three calls of one DVGO step at the built-in dvgo_model's
+    widths (100^3 grid, 8,192 rays, sample_k 256: M = 2,097,152 over a
+    102^3 padded row space): the density (8 columns), k0 and gradient
+    field (24 columns each) against the card twin and a repeat."""
+    from fgs_nerf_tpu_torch.models import density_voxel as D
+
+    cfg = D.make_density_config([-1, -1, -1], [1, 1, 1], 100**3, 100**3,
+                                0.5, alpha_init=1e-6, fast_color_thres=1e-7,
+                                sample_k=256)
+    params = D.init_params(cfg, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    params["density"] = params["density"] + 2.0 * torch.randn(
+        params["density"].shape, generator=gen, device=cuda)
+    params["k0"] = torch.randn(params["k0"].shape, generator=gen, device=cuda)
+    params = {k: v.requires_grad_(True) for k, v in params.items()}
+    n = 8192
+    rays_o = torch.tensor([0.0, 0.0, 3.5], device=cuda).expand(n, 3)
+    rays_d = torch.randn((n, 3), generator=gen, device=cuda) * 0.4 - rays_o
+    target = torch.rand((n, 3), generator=gen, device=cuda)
+    box = SceneBox.create([-1, -1, -1], [1, 1, 1], cuda)
+    calls = []
+    site = SC.dense_accumulate
+
+    def rec(*args):
+        calls.append(tuple(a.clone() if torch.is_tensor(a) else a
+                           for a in args))
+        return site(*args)
+
+    SC.dense_accumulate = rec
+    try:
+        out = D.forward(params, {}, cfg, box, rays_o.contiguous(), rays_d,
+                        None, near=0.2, bg=1.0)
+        loss = (torch.mean((out["rgb_marched"] - target) ** 2)
+                + torch.mean(out["normal_marched"] ** 2))
+        torch.autograd.grad(loss, [params["density"], params["k0"]])
+    finally:
+        SC.dense_accumulate = site
+    assert sorted(c[1].shape[1] for c in calls) == [8, 24, 24]
+    for rows, upd, cap in calls:
+        assert rows.numel() == n * 256 and cap == 102**3
+        n0 = B7.KERNEL.launches["dense_accumulate"]
+        got = B7.dense_accumulate(rows, upd, cap)
+        torch.cuda.synchronize()
+        assert B7.KERNEL.launches["dense_accumulate"] == n0 + 1
+        want = B7.dense_accumulate_plain(rows, upd, cap)
+        scale = float(want.abs().max())
+        assert scale > 0
+        assert float((got - want).abs().max()) <= 1e-4 * scale
+        assert torch.equal(got, B7.dense_accumulate(rows, upd, cap))
+
+
 @pytest.mark.parametrize("stage", ["coarse", "fine"])
 def test_lattice_step_kernels_match_plain(cuda, stage):
     """A small lattice step (20^3 grid, 256 rays) through B7 and through

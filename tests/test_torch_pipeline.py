@@ -297,17 +297,40 @@ def test_cli_untrained_expname_exits_cleanly(trained, tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
+    """Data parallelism (A9) still raises; the DVGO geometry search (A8)
+    and the LLFF loader (A10) now run."""
     from fgs_nerf_tpu_torch import run as R
+    from fgs_nerf_tpu_torch.data.synthetic import make_synthetic_dataset
 
     with pytest.raises(NotImplementedError, match="A9"):
         R.main(["--mesh", "dp=2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A8"):
-        run_training(load_config("quick_synthetic"), None, str(tmp_path),
-                     dvgo_init=True, device="cpu")
+    cfg = load_config("quick_synthetic")
+    cfg.update(deep_update_j(dict(cfg), dict(
+        dvgo=dict(N_iters=2, N_rand=64, pervoxel_lr=False),
+        dvgo_model=dict(num_voxels=12**3, num_voxels_base=12**3,
+                        sample_k=0))))
+    res = run_training(cfg, make_synthetic_dataset(n_views=3, h=16, w=16,
+                                                   n_test=1),
+                       str(tmp_path / "dvgo"), stages=("geometry_searching",),
+                       dvgo_init=True, device="cpu")
+    ck = ckpt_t.load_checkpoint(res["geometry_searching"].ckpt_path)
+    assert set(ck.params) == {"density", "k0"} and ck.sdf_mask is not None
+    root = tmp_path / "llff"
+    (root / "images").mkdir(parents=True)
+    rows = np.zeros((3, 17))
+    for i in range(3):
+        write_png(str(root / "images" / f"{i}.png"),
+                  np.full((8, 12, 3), 40 * i, np.uint8))
+        pose = np.concatenate([np.eye(3), [[0.1 * i], [0.0], [0.0]],
+                               [[8.0], [12.0], [10.0]]], 1)
+        rows[i] = np.concatenate([pose.reshape(-1), [1.0, 4.0]])
+    np.save(root / "poses_bounds.npy", rows)
     cfg = load_config("dtu")
-    cfg["data"]["dataset_type"] = "llff"  # a loader still to port
-    with pytest.raises(NotImplementedError, match="A10"):
-        load_dataset(cfg)
+    cfg["data"]["dataset_type"] = "llff"
+    cfg["data"]["datadir"] = str(root)
+    data = load_dataset(cfg)
+    assert data["images"].shape == (3, 8, 12, 3)
+    assert list(data["i_test"]) == [0]
 
 
 def _png_chunks(data):
