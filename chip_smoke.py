@@ -157,6 +157,37 @@ The remaining loaders, the DVGO geometry search and the TensoRF k0:
     timed steps with B1-B4 launched each step, then a kernel step against
     a plain-twin step as phase 4 (every factor's gradient).
 
+Parallelism (``fgs_nerf_tpu_torch/parallel``), two ranks sharing the one
+card through gloo (NCCL refuses two ranks on one device; their step times
+are not a scaling measurement), each rank started by ``parallel/launch.py:
+launch_local``:
+
+19. dp = 2: the sorted coarse step (8,192 rays, 4,096 a rank, 114^3) and
+    the sorted fine step (256^3): on each rank, the loss and the
+    dp-averaged gradients of its shard against the single-process step of
+    the whole batch from the same state (loss relative 1e-5, gradients
+    ``rtol 1e-3, atol 5e-5``), the post-Adam parameters where |g| > 1e-5
+    within 1e-4; then 2 warm-up and 4 timed dp steps with the launch
+    counts zeroed before and read after (every kernel of the path on
+    each rank), the replicas bit-equal after them, the gradient
+    all-reduce's bytes and time, step ms and peak memory a rank.
+20. sp = 2: the lattice fine step at 256^3, 128 x-planes a slab, against
+    the single-process step (run in turns: loss relative 1e-5, the
+    slabs' grid parameters ``rtol 1e-4, atol 1e-5``, MLP leaves ``rtol
+    1e-3, atol 2e-3``); the sharded gather's and halo exchanges'
+    all-reduces recorded on one step (bytes, ms); timed steps, B7 on
+    each slab.
+21. The CLI under ``torch.distributed.run --nproc_per_node 2 --mesh dp=2
+    --dist_backend gloo --device cuda:0`` on phase 14's config, geometry
+    stage only: its whole PSNR history within 5e-3 of a single-process
+    stage that sums each step as dp does (two half-batch passes, their
+    gradients and metrics averaged: ``_half_batch_steps``), and of the
+    plain single-process stage over the first 8 steps (the whole history
+    printed), rank 0's checkpoint loads with ``load_checkpoint``, both
+    ranks exit 0.  Then NCCL at world size 1 (``torch.distributed.run
+    --nproc_per_node 1``, ``--mesh dp=1``): one sorted coarse step
+    bit-equal to the step without a mesh.
+
 B1 and B5 calls of phases 2 and 5-8 also carry a library time: one
 ``F.grid_sample`` (trilinear, ``align_corners=True``, zero padding) of
 the unpacked [1, C, X, Y, Z] grid at the serve's own points, held within
@@ -263,10 +294,10 @@ _WORKLOADS = {
 }
 
 
-def _setup(torch, M, stage, engine, dev, n_rand, **cfg_over):
+def _setup(torch, M, stage, engine, dev, n_rand, mesh=None, **cfg_over):
     """(cfg, box, params0, lrs, s_val, loss_and_grads, step) of the
     ``stage`` bench workload on ``engine``, its config fields replaced by
-    ``cfg_over``."""
+    ``cfg_over``; the step on ``mesh`` when given."""
     import dataclasses
 
     from fgs_nerf_tpu_torch.core.box import SceneBox
@@ -285,13 +316,27 @@ def _setup(torch, M, stage, engine, dev, n_rand, **cfg_over):
     opts = {k: ParamOpts(skip_zero_grad=k in ("k0", "sdf")) for k in params0}
     loss_and_grads = make_loss_and_grads(
         cfg, box, loss_w, near=0.2, bg=1.0, sdf_tv=0.1, smooth_grad_tv=0.05,
-        use_nonempty_mask=False)
+        use_nonempty_mask=False, mesh=mesh)
     step = make_train_step(
         cfg, box, loss_w, opts, near=0.2, bg=1.0, n_rand=n_rand, sdf_tv=0.1,
         smooth_grad_tv=0.05, inject_tv=inject_tv, tv_dense=True,
-        weight_tv_density=0.01, weight_tv_k0=0.0, use_nonempty_mask=False)
+        weight_tv_density=0.01, weight_tv_k0=0.0, use_nonempty_mask=False,
+        mesh=mesh)
     return (cfg, box, params0, lrs, torch.tensor(s_val, device=dev),
             loss_and_grads, step)
+
+
+def _bench_batch(torch, np, dev, n_rand):
+    """The bench traffic: ``n_rand`` rays from one camera, seed 0."""
+    rng = np.random.default_rng(0)
+    cam = np.array([0.0, 0.0, 3.5], np.float32)
+    rays_o = np.broadcast_to(cam, (n_rand, 3)).copy()
+    look = rng.normal(size=(n_rand, 3)).astype(np.float32) * 0.4
+    rays_d = look - rays_o
+    viewdirs = rays_d / np.linalg.norm(rays_d, axis=-1, keepdims=True)
+    target = rng.uniform(size=(n_rand, 3)).astype(np.float32)
+    return [torch.as_tensor(a, device=dev)
+            for a in (rays_o, rays_d, viewdirs, target)]
 
 
 def _card_line():
@@ -1699,6 +1744,20 @@ def _look_at(c):
     return np.stack([x, np.cross(z, x), z], -1)
 
 
+def view_dirs(d_cam, c2w):
+    """World ray directions ``d_cam @ c2w[:3, :3].T`` as three
+    multiply-adds a ray.  Not a BLAS product: the scan writer renders
+    views in threads, and concurrent float32 matrix products from
+    several threads gave different bits from run to run (a band of rays
+    in one view of a 49-view scan now and then), so the written scan,
+    and all that phase 15 trains on it, differed between runs."""
+    import numpy as np
+
+    d = d_cam.reshape(-1, 3)
+    r = np.asarray(c2w, np.float32)[:3, :3]
+    return d[:, :1] * r[:, 0] + d[:, 1:2] * r[:, 1] + d[:, 2:3] * r[:, 2]
+
+
 def write_dtu_scan(scan_dir, n_views, hw=DTU_HW, scale=100.0,
                    mask_channels=1):
     """Write a DTU-format scan: ``image/%06d.png`` (RGB) and
@@ -1745,8 +1804,7 @@ def write_dtu_scan(scan_dir, n_views, hw=DTU_HW, scale=100.0,
     np.savez(os.path.join(scan_dir, "cameras_sphere.npz"), **cams)
 
     def view(i):
-        c2w = _look_at(centres[i])
-        rays_d = d_cam.reshape(-1, 3) @ c2w.T.astype(np.float32)
+        rays_d = view_dirs(d_cam, _look_at(centres[i]))
         rays_o = np.broadcast_to(centres[i].astype(np.float32), rays_d.shape)
         img, alpha = shade_sphere(rays_o, rays_d)
         write_png(os.path.join(scan_dir, "image", f"{i:06d}.png"),
@@ -1899,12 +1957,20 @@ def _pipeline_phase(torch, np, card, repo, kernels, config_text,
         _check(sorted({c[0] for c in calls}) == sorted(_STAGE_SITES[stage]),
                f"{stage}: recorded calls {[c[0] for c in calls]}")
         seen = {}
+        # phase 14's serves also get their library time at the last
+        # rung's grid (B5's x taps serve the transposed grid)
+        cfg_last = stages[stage]["result"].cfg_model
+        grid3 = cfg_last.world_size if label == "pipeline" else None
         while calls:
             name, dev, args = calls.pop(0)
             seen[name] = seen.get(name, 0) + 1
             args = _clone(args, torch, dev)
-            r = _check_call(torch, name, args,
-                            f"{label} {stage} #{seen[name]}")
+            path = f"{label} {stage} #{seen[name]}"
+            if name == "tap_window_serve_cm":
+                path += (" z/y taps" if args[2].shape[0]
+                         == 4 * len(cfg_last.all_displace) else " x taps")
+            r = _check_call(torch, name, args, path,
+                            grid3=grid3 if name in _SERVE_ENTRIES else None)
             del args
             torch.cuda.empty_cache()
             checked.setdefault(name, []).append(r)
@@ -2559,7 +2625,7 @@ def _dvgo_phase(torch, np, card, repo, kernels):
                                                    *batch), ms, card,
                       path="dvgo")
     lag = DT.make_density_loss_and_grads(cfg_m, box, **{
-        k: v for k, v in kw.items()})
+        k: v for k, v in kw.items() if k != "mesh"})
     _, lk, _, gk = lag(params, buffers, *batch[:4])
     with _patched([(SC, "dense_accumulate", B7.dense_accumulate_plain)]):
         _, lp, _, gp = lag(params, buffers, *batch[:4])
@@ -2672,6 +2738,458 @@ def _tensorf_phase(torch, np, card, dev, batch, n_rand, kernels):
     return line, launches
 
 
+# ---------------------------------------------------------------------------
+# 19.-21. parallelism: two ranks share the one card (gloo); NCCL at world 1
+# ---------------------------------------------------------------------------
+
+N_MESH_STEPS = 4
+# the launchers each dp path must reach, on each rank
+_DP_PATH_LAUNCHERS = {
+    "coarse": ("window_gather_cm", "dense_accumulate_cm", "fused_shade_fwd",
+               "fused_shade_bwd"),
+    "fine": ("window_gather_cm", "dense_accumulate_cm", "tap_window_serve_cm",
+             "tap_dense_accumulate_cm"),
+}
+
+
+def _rank_kernels():
+    """The kernels, loaded from the libraries the parent built."""
+    from fgs_nerf_tpu_torch.ops.cuda import build
+    from fgs_nerf_tpu_torch.ops.cuda import fused_mlp_cm as B89
+    from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
+    from fgs_nerf_tpu_torch.ops.cuda import scatter_combine as B7
+    from fgs_nerf_tpu_torch.ops.cuda import scatter_combine_cm as B2
+    from fgs_nerf_tpu_torch.ops.cuda import tap_serve_cm as B56
+    from fgs_nerf_tpu_torch.ops.cuda import window_gather_cm as B1
+
+    kernels = (B1.KERNEL, B2.KERNEL, FS.KERNEL, B56.KERNEL, B7.KERNEL,
+               B89.KERNEL)
+    build.build_all(kernels)
+    return kernels
+
+
+def _zero_counts(kernels):
+    for k in kernels:
+        for fn in k.launches:
+            k.launches[fn] = 0
+
+
+def _counts(kernels):
+    return {fn: n for k in kernels for fn, n in k.launches.items() if n}
+
+
+def _worst(torch, got, want, rtol, atol, where=None):
+    """max(|got - want| - (atol + rtol |want|)) over ``where``: <= 0 when
+    every element is within tolerance."""
+    d = (got - want).abs() - (atol + rtol * want.abs())
+    if where is not None:
+        d = d[where]
+    return float(d.max()) if d.numel() else float("-inf")
+
+
+def _timed_steps(torch, step, state, batch, s_val, lrs, kernels, dev):
+    """2 warm-up and ``N_MESH_STEPS`` timed steps (host clock, ending in a
+    synchronize), launch counts zeroed before and read after, peak
+    memory: (state, step ms, counts, peak GB)."""
+    params, opt = state
+    _zero_counts(kernels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(N_WARMUP + N_MESH_STEPS):
+        if i == N_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, {}, *batch, s_val, lrs, 1.0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / N_MESH_STEPS * 1e3
+    _check(math.isfinite(float(metrics["loss"])), "non-finite mesh loss")
+    return ((params, opt), ms, _counts(kernels),
+            torch.cuda.max_memory_allocated(dev) / 1e9)
+
+
+def _all_reduce_ms(torch, n_floats, group, dev, reps=3):
+    """One ``all_reduce`` of ``n_floats`` float32 over ``group``, alone."""
+    import torch.distributed as dist
+
+    buf = torch.zeros((n_floats,), dtype=torch.float32, device=dev)
+    dist.all_reduce(buf, group=group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dist.all_reduce(buf, group=group)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _dp_rank(device, n_rand=8192):
+    """Phase 19 on one rank of dp = 2."""
+    import numpy as np
+    import torch
+
+    from fgs_nerf_tpu_torch.device import resolve_device
+    from fgs_nerf_tpu_torch.models import sdf_voxel as M
+    from fgs_nerf_tpu_torch.optim.masked_adam import init_state, tree_leaves
+    from fgs_nerf_tpu_torch.parallel.mesh import (
+        build_mesh, check_replicas, shard_batch,
+    )
+    from fgs_nerf_tpu_torch.train.trainer import dp_reduce, step_metrics
+
+    dev = resolve_device(device)
+    torch.cuda.set_device(dev)
+    kernels = _rank_kernels()
+    mesh = build_mesh("dp=2", device=dev)
+    batch = _bench_batch(torch, np, dev, n_rand)
+    local = list(shard_batch(mesh, *batch))
+    out = {"rank": mesh.rank}
+    for stage in ("coarse", "fine"):
+        _, _, p0, lrs, s_val, lg1, step1 = _setup(torch, M, stage, "sorted",
+                                                  dev, n_rand)
+        *_, lgm, stepm = _setup(torch, M, stage, "sorted", dev, n_rand,
+                                mesh=mesh)
+        # the whole batch in this process, then the shard and the dp mean
+        _, l1, g1 = lg1(p0, {}, *batch, s_val, 1.0)
+        loss1 = float(l1["loss"])
+        render, lm, gm = lgm(p0, {}, *local, s_val, 1.0)
+        gm, mm = dp_reduce(mesh, gm, step_metrics(render, lm))
+        del render, lm, l1
+        rel = abs(float(mm["loss"]) - loss1) / abs(loss1)
+        g_worst = max(_worst(torch, b, a, 1e-3, 5e-5) for a, b in
+                      zip(tree_leaves(g1), tree_leaves(gm)))
+        _check(rel <= 1e-5, f"dp {stage}: loss {float(mm['loss'])} vs "
+                            f"{loss1}")
+        _check(g_worst <= 0, f"dp {stage}: gradients past rtol 1e-3, "
+                             f"atol 5e-5 by {g_worst}")
+        del gm
+        torch.cuda.empty_cache()
+        p1, _, _ = step1(p0, init_state(p0), {}, *batch, s_val, lrs, 1.0)
+        pm, _, _ = stepm(p0, init_state(p0), {}, *local, s_val, lrs, 1.0)
+        adam = max(
+            _worst(torch, b, a, 0.0, 1e-4, where=g.abs() > 1e-5)
+            for a, b, g in zip(tree_leaves(p1), tree_leaves(pm),
+                               tree_leaves(g1)))
+        _check(adam <= 0, f"dp {stage}: post-Adam past 1e-4 by {adam}")
+        del p1, pm, g1
+        torch.cuda.empty_cache()
+        (params, _), ms, counts, peak = _timed_steps(
+            torch, stepm, (p0, init_state(p0)), local, s_val, lrs, kernels,
+            dev)
+        for fn in _DP_PATH_LAUNCHERS[stage]:
+            _check(counts.get(fn, 0) > 0,
+                   f"dp {stage}: {fn} not launched on rank {mesh.rank}")
+        check_replicas(mesh, params, f"dp {stage} params")
+        n_floats = sum(x.numel() for x in tree_leaves(params)) + 9
+        out.update({
+            f"{stage}/loss_rel_err": rel, f"{stage}/grad_worst": g_worst,
+            f"{stage}/adam_worst": adam, f"{stage}/step_ms": ms,
+            f"{stage}/peak_gb": peak,
+            f"{stage}/all_reduce_bytes": 4 * n_floats,
+            f"{stage}/all_reduce_ms": _all_reduce_ms(torch, n_floats,
+                                                     mesh.dp_group, dev),
+            **{f"{stage}/launches/{fn}": n for fn, n in counts.items()}})
+        del params, p0
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sp_rank(device, n_rand=8192):
+    """Phase 20 on one rank of sp = 2."""
+    import numpy as np
+    import torch
+
+    from fgs_nerf_tpu_torch.device import resolve_device
+    from fgs_nerf_tpu_torch.models import sdf_voxel as M
+    from fgs_nerf_tpu_torch.optim.masked_adam import init_state
+    from fgs_nerf_tpu_torch.parallel import spatial as SPM
+    from fgs_nerf_tpu_torch.parallel.mesh import (
+        barrier, build_mesh, check_replicas,
+    )
+    from fgs_nerf_tpu_torch.parallel.spatial import slab_bounds
+    from fgs_nerf_tpu_torch.parallel.spatial_train import (
+        GRID_PARAMS, gather_spatial, place_spatial,
+    )
+
+    dev = resolve_device(device)
+    torch.cuda.set_device(dev)
+    kernels = _rank_kernels()
+    mesh = build_mesh("dp=1,sp=2", device=dev)
+    batch = _bench_batch(torch, np, dev, n_rand)
+    cfg, _, p0, lrs, s_val, _, step1 = _setup(torch, M, "fine", "lattice",
+                                              dev, n_rand)
+    *_, stepm = _setup(torch, M, "fine", "lattice", dev, n_rand, mesh=mesh)
+    x = cfg.world_size[0]
+    x0, x1 = slab_bounds(x, mesh)
+    # the single-process step, one rank at a time (one on the card)
+    for r in range(mesh.sp):
+        if r == mesh.sp_index:
+            p1, _, m1 = step1(p0, init_state(p0), {}, *batch, s_val, lrs, 1.0)
+            ref = {k: (v[x0:x1].clone() if k in GRID_PARAMS else v)
+                   for k, v in p1.items()}
+            loss1 = float(m1["loss"])
+            del p1, m1
+            torch.cuda.empty_cache()
+        barrier(mesh)
+    ps, os_ = place_spatial(mesh, p0, init_state(p0))
+    pm, _, mm = stepm(ps, os_, {}, *batch, s_val, lrs, 1.0)
+    rel = abs(float(mm["loss"]) - loss1) / abs(loss1)
+    _check(rel <= 1e-5, f"sp: loss {float(mm['loss'])} vs {loss1}")
+    grid_worst = max(_worst(torch, pm[k], ref[k], 1e-4, 1e-5)
+                     for k in GRID_PARAMS)
+    _check(grid_worst <= 0, f"sp: grid parameters past rtol 1e-4, atol 1e-5 "
+                            f"by {grid_worst}")
+    mlp_worst = max(_worst(torch, pm[h][k], ref[h][k], 1e-3, 2e-3)
+                    for h in ("refnet", "rgbnet") for k in ref[h])
+    _check(mlp_worst <= 0, f"sp: MLP leaves past rtol 1e-3, atol 2e-3 by "
+                           f"{mlp_worst}")
+    full = gather_spatial(mesh, pm, x)
+    _check(all(torch.equal(full[k][x0:x1], pm[k]) for k in GRID_PARAMS),
+           "sp: gathered grid differs from the slab")
+    del full, ref
+    torch.cuda.empty_cache()
+    # the collectives of one step: the sharded gathers' sums, and the
+    # rest (halo planes forward and backward, the TV sums)
+    rec = {"gather": [], "other": []}
+    in_gather = [False]
+    real_sum, real_reduce = SPM.sum_over_sp, SPM.all_reduce_sum
+
+    def gather_sum(x, mesh_):
+        in_gather[0] = True
+        try:
+            return real_sum(x, mesh_)
+        finally:
+            in_gather[0] = False
+
+    def recorded(t, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_reduce(t, group)
+        torch.cuda.synchronize()
+        rec["gather" if in_gather[0] else "other"].append(
+            (t.numel() * t.element_size(), (time.perf_counter() - t0) * 1e3))
+        return t
+
+    SPM.sum_over_sp, SPM.all_reduce_sum = gather_sum, recorded
+    try:
+        stepm(ps, os_, {}, *batch, s_val, lrs, 1.0)
+    finally:
+        SPM.sum_over_sp, SPM.all_reduce_sum = real_sum, real_reduce
+    (params, _), ms, counts, peak = _timed_steps(
+        torch, stepm, (ps, os_), batch, s_val, lrs, kernels, dev)
+    _check(counts.get("dense_accumulate", 0) > 0,
+           f"sp: B7 not launched on rank {mesh.rank}")
+    check_replicas(mesh, {k: v for k, v in params.items()
+                          if k not in GRID_PARAMS}, "sp MLP leaves")
+    return {"rank": mesh.rank, "loss_rel_err": rel, "grid_worst": grid_worst,
+            "mlp_worst": mlp_worst, "step_ms": ms, "peak_gb": peak,
+            "slab_planes": x1 - x0,
+            **{f"{kind}_all_reduce_{what}": (
+                len(r) if what == "calls" else
+                sum(b for b, _ in r) if what == "bytes" else
+                sum(t for _, t in r))
+               for kind, r in rec.items()
+               for what in ("calls", "bytes", "ms")},
+            **{f"launches/{fn}": n for fn, n in counts.items()}}
+
+
+def _mesh_phases(torch, np, card, repo):
+    """Phases 19 and 20 (two ranks on ``cuda:0``, gloo): the per-rank
+    records, printed, and the launch counts of each path (rank 0's)."""
+    from fgs_nerf_tpu_torch.parallel.launch import launch_local
+
+    target = f"{Path(__file__).resolve()}:"
+    launches = {}
+    for phase, fn in ((19, "_dp_rank"), (20, "_sp_rank")):
+        t0 = time.perf_counter()
+        ranks = launch_local(2, target + fn, backend="gloo", device="cuda:0",
+                             timeout=400)
+        recs = [{k: (v.item() if v.ndim == 0 else v.tolist())
+                 for k, v in r.items()} for r in ranks]
+        print(json.dumps({f"phase_{phase}": recs, "wall_s":
+                          time.perf_counter() - t0, "card": card,
+                          "note": "two ranks share one card"}))
+        rank0 = next(r for r in recs if r["rank"] == 0)
+        for k, v in rank0.items():
+            if "launches/" in k:
+                stage, _, launcher = k.rpartition("launches/")
+                path = (f"dp2_{stage.rstrip('/')}" if phase == 19
+                        else "sp2_lattice_fine")
+                launches.setdefault(path, {})[launcher] = v
+    return launches
+
+
+@contextlib.contextmanager
+def _half_batch_steps(torch, dev):
+    """Single-process stages whose every step takes the mean of two
+    half-batch passes, as dp = 2 forms it: rank 0's rows and rank 1's
+    each through the loss (the orientation term scaled by dp), gradients
+    and metrics summed in float32 and halved.  The dp run's arithmetic
+    without its processes and collectives: what a dp run should track
+    once rounding alone has parted it from the whole-batch stage."""
+    from fgs_nerf_tpu_torch.optim.masked_adam import tree_map
+    from fgs_nerf_tpu_torch.parallel.mesh import Mesh
+    from fgs_nerf_tpu_torch.train import trainer as T
+
+    real_make, real_metrics = T.make_loss_and_grads, T.step_metrics
+    halves = Mesh(dp=2, sp=1, dp_index=0, sp_index=0, dp_group=None,
+                  sp_group=None, device=torch.device(dev))
+
+    def make(*args, mesh=None, **kw):
+        fn = real_make(*args, mesh=halves, **kw)
+
+        def two_halves(params, buffers, rays_o, rays_d, viewdirs, target,
+                       s_val, tv_on):
+            n = rays_o.shape[0] // 2
+            outs = [fn(params, buffers, rays_o[s], rays_d[s], viewdirs[s],
+                       target[s], s_val, tv_on)
+                    for s in (slice(0, n), slice(n, None))]
+            grads = tree_map(lambda a, b: (a + b) / 2, outs[0][2],
+                             outs[1][2])
+            return ([o[0] for o in outs], [o[1] for o in outs], grads)
+        return two_halves
+
+    def metrics(renders, losses):
+        m0, m1 = (real_metrics(r, l) for r, l in zip(renders, losses))
+        return {k: (m0[k].float() + m1[k].float()) / 2 for k in m0}
+
+    T.make_loss_and_grads, T.step_metrics = make, metrics
+    try:
+        yield
+    finally:
+        T.make_loss_and_grads, T.step_metrics = real_make, real_metrics
+
+
+def _cli_mesh_phase(torch, np, card, repo, dev):
+    """Phase 21: the CLI on two ranks of ``cuda:0`` (dp = 2, gloo),
+    geometry stage of phase 14's config, against the same stage in this
+    process; then NCCL at world size 1."""
+    import re
+    import shutil
+
+    from fgs_nerf_tpu_torch.config.base import load_config
+    from fgs_nerf_tpu_torch.data.dataset import load_dataset
+    from fgs_nerf_tpu_torch.train.checkpoint import load_checkpoint
+    from fgs_nerf_tpu_torch.train.pipeline import run_training
+
+    run_dir = repo / "results" / "chip_smoke_dp"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    cfg_path = run_dir / "pipeline_config.py"
+    cfg_path.write_text(_PIPELINE_CONFIG)
+    t0 = time.perf_counter()
+    cfg = load_config(str(cfg_path))
+    single = run_training(cfg, load_dataset(cfg), str(run_dir / "single"),
+                          stages=("geometry_searching",), i_print=1,
+                          device=dev)["geometry_searching"]
+    t_single = time.perf_counter() - t0
+    with _half_batch_steps(torch, dev):
+        halves = run_training(cfg, load_dataset(cfg),
+                              str(run_dir / "halves"),
+                              stages=("geometry_searching",), i_print=1,
+                              device=dev)["geometry_searching"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m", "fgs_nerf_tpu_torch.run",
+         "--config", str(cfg_path), "--expname", "dp2",
+         "--output_dir", str(run_dir), "--mesh", "dp=2",
+         "--dist_backend", "gloo", "--device", "cuda:0",
+         "--coarse_training", "0", "--fine_training", "0",
+         "--i_print", "1", "--eval_ssim", "0"],
+        cwd=str(repo), capture_output=True, text=True, timeout=600)
+    t_cli = time.perf_counter() - t0
+    _check(proc.returncode == 0,
+           f"CLI dp=2 exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    psnr = [float(v) for v in re.findall(
+        r"\[geometry_searching\] iter +\d+/\d+ loss \S+ PSNR +(\S+)",
+        proc.stderr + proc.stdout)]
+    want = np.asarray(single.psnr_history)
+    _check(len(psnr) == len(want), f"CLI dp=2: {len(psnr)} PSNR lines, "
+                                   f"want {len(want)}")
+    # The log prints 4 decimals (hence the 5e-5).  The whole history is
+    # held within 5e-3 (`tests/test_parallel.py:204`) of the half-batch
+    # stage, which sums as dp does; against the whole-batch stage, the
+    # first 8 steps (the JAX test's stage), then printed.
+    halves_psnr = np.asarray(halves.psnr_history)
+    dev_halves = np.abs(np.asarray(psnr) - halves_psnr)
+    dev_psnr = np.abs(np.asarray(psnr) - want)
+    psnr_err = float(dev_psnr.max())
+    _check(len(halves_psnr) == len(want)
+           and float(dev_halves.max()) <= 5e-3 + 5e-5,
+           f"CLI dp=2 PSNR history off the half-batch stage's by "
+           f"{dev_halves.tolist()}: {psnr} against {halves_psnr.tolist()}")
+    _check(float(dev_psnr[:8].max()) <= 5e-3 + 5e-5,
+           f"CLI dp=2 PSNR history off by {dev_psnr.tolist()}: {psnr} "
+           f"against {want.tolist()}")
+    ck = load_checkpoint(str(run_dir / "dp2" / "geometry_searching_last.npz"))
+    d = np.abs(ck.params["sdf"] - single.params["sdf"].cpu().numpy())
+    _check(ck.global_step == len(want), f"checkpoint step {ck.global_step}")
+    rec = {"psnr_max_abs_err": psnr_err,
+           "psnr_max_abs_err_8": float(dev_psnr[:8].max()),
+           "psnr_max_abs_err_halves": float(dev_halves.max()),
+           "halves_vs_single_max_abs": float(np.abs(halves_psnr
+                                                    - want).max()),
+           "steps": len(want),
+           "psnr_cli": psnr, "psnr_single": want.tolist(),
+           "psnr_halves": halves_psnr.tolist(),
+           "sdf_median_abs_diff": float(np.median(d)),
+           "sdf_max_abs_diff": float(d.max()), "single_s": t_single,
+           "cli_s": t_cli, "card": card, "note": "two ranks share one card"}
+    shutil.rmtree(run_dir, ignore_errors=True)
+
+    # NCCL, world size 1
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", str(Path(__file__).resolve()),
+         "--nccl-world-1"], cwd=str(repo), capture_output=True, text=True,
+        timeout=300)
+    _check(proc.returncode == 0,
+           f"NCCL world 1 exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    line = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith('{"nccl_world_1"')]
+    _check(len(line) == 1, proc.stdout[-2000:])
+    nccl = json.loads(line[0])["nccl_world_1"]
+    _check(nccl["bit_equal"], f"NCCL dp=1 step differs: {nccl}")
+    rec["nccl_world_1"] = dict(nccl, wall_s=time.perf_counter() - t0)
+    print(json.dumps({"phase_21": rec}))
+    return rec
+
+
+def _nccl_world_1():
+    """Under ``torch.distributed.run --nproc_per_node 1``: one sorted coarse
+    bench step on ``--mesh dp=1`` through NCCL and one without a mesh,
+    from the same state: loss and every parameter bit for bit."""
+    import numpy as np
+    import torch
+
+    from fgs_nerf_tpu_torch.device import resolve_device
+    from fgs_nerf_tpu_torch.models import sdf_voxel as M
+    from fgs_nerf_tpu_torch.optim.masked_adam import init_state, tree_leaves
+    from fgs_nerf_tpu_torch.parallel.mesh import (
+        build_mesh, maybe_distributed_init,
+    )
+
+    dev = resolve_device("cuda:0")
+    torch.cuda.set_device(dev)
+    _rank_kernels()
+    _check(maybe_distributed_init("nccl", dev), "no launcher environment")
+    mesh = build_mesh("dp=1", device=dev)
+    batch = _bench_batch(torch, np, dev, 8192)
+    _, _, p0, lrs, s_val, _, step = _setup(torch, M, "coarse", "sorted", dev,
+                                           8192)
+    *_, step_m = _setup(torch, M, "coarse", "sorted", dev, 8192, mesh=mesh)
+    p1, _, m1 = step(p0, init_state(p0), {}, *batch, s_val, lrs, 1.0)
+    pm, _, mm = step_m(p0, init_state(p0), {}, *batch, s_val, lrs, 1.0)
+    equal = bool(torch.equal(m1["loss"], mm["loss"])) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(p1), tree_leaves(pm)))
+    import torch.distributed as dist
+
+    print(json.dumps({"nccl_world_1": {
+        "backend": dist.get_backend(), "world": dist.get_world_size(),
+        "bit_equal": equal, "loss": float(mm["loss"])}}))
+    dist.destroy_process_group()
+
+
 def main():
     import torch
 
@@ -2682,6 +3200,8 @@ def main():
         raise SystemExit("chip_smoke: the fgs_nerf_tpu_torch package is "
                          "not beside this script")
     sys.path.insert(0, str(repo))
+    if "--nccl-world-1" in sys.argv[1:]:
+        return _nccl_world_1()
 
     import numpy as np
 
@@ -2716,15 +3236,7 @@ def main():
 
     # ---- the bench.py configuration and traffic --------------------------
     n_rand = 8192
-    rng = np.random.default_rng(0)
-    cam = np.array([0.0, 0.0, 3.5], np.float32)
-    rays_o = np.broadcast_to(cam, (n_rand, 3)).copy()
-    look = rng.normal(size=(n_rand, 3)).astype(np.float32) * 0.4
-    rays_d = look - rays_o
-    viewdirs = rays_d / np.linalg.norm(rays_d, axis=-1, keepdims=True)
-    target = rng.uniform(size=(n_rand, 3)).astype(np.float32)
-    batch = [torch.as_tensor(a, device=dev)
-             for a in (rays_o, rays_d, viewdirs, target)]
+    batch = _bench_batch(torch, np, dev, n_rand)
     cfg, _, params0, lrs, s_val, loss_and_grads, step = _setup(
         torch, M, "coarse", "sorted", dev, n_rand)
     m = n_rand * cfg.sample_k
@@ -2888,6 +3400,13 @@ def main():
                       "dvgo_step_ms": dvgo["dvgo_step_ms"],
                       "tensorf_step_ms": tensorf["step_ms"]}))
 
+    # ---- 19. dp = 2, 20. sp = 2 (two ranks on the card), 21. the CLI ----
+    t_new = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh_launches = _mesh_phases(torch, np, card, repo)
+    _cli_mesh_phase(torch, np, card, repo, dev)
+    print(json.dumps({"phases_19_21_s": time.perf_counter() - t_new}))
+
     rows_out = []
     for name, kern, replaces, main_call in (
         ("window_gather_cm", B1.KERNEL,
@@ -2915,7 +3434,9 @@ def main():
                    "dvgo_coarse": dvgo_launches["dvgo_coarse"].get(
                        _LAUNCHER_OF[name], 0),
                    "tensorf_coarse": tensorf_launches.get(
-                       _LAUNCHER_OF[name], 0)}
+                       _LAUNCHER_OF[name], 0),
+                   **{p: c.get(_LAUNCHER_OF[name], 0)
+                      for p, c in mesh_launches.items()}}
         rows_out.append({
             "name": name, "route": "cuda", "source": kern.source_rel,
             "replaces": replaces,
@@ -2942,6 +3463,8 @@ def main():
     by_path = {p.replace(" ", "_"): c.get("dense_accumulate", 0)
                for p, c in lattice_launches.items()}
     by_path["dvgo"] = dvgo_launches["dvgo"].get("dense_accumulate", 0)
+    by_path["sp2_lattice_fine"] = mesh_launches["sp2_lattice_fine"].get(
+        "dense_accumulate", 0)
     b7_calls = b7_calls + dvgo_calls
     rows_out.append({
         "name": "dense_accumulate", "route": "cuda",

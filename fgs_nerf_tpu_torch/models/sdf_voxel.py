@@ -55,8 +55,12 @@ from fgs_nerf_tpu_torch.ops.sorted_cm import (
     rows_fracs_cm, rows_to_coords_cm, sort_stream, tap_bounds,
     tap_deltas_weights, tap_gather_sorted_cm, unsort_channels,
 )
-from fgs_nerf_tpu_torch.ops.stencils import sdf_gradient, sdf_gradient_cm, smooth_grid
+from fgs_nerf_tpu_torch.ops.stencils import sdf_gradient_cm, smooth_grid
 from fgs_nerf_tpu_torch.ops.transmittance import alpha_to_weights
+from fgs_nerf_tpu_torch.parallel.spatial import (
+    sharded_sdf_gradient, sharded_stencil, sp_mesh,
+)
+from fgs_nerf_tpu_torch.parallel.spatial_train import make_spatial_gather
 
 
 @dataclasses.dataclass(frozen=True)
@@ -564,20 +568,49 @@ def _shade_fine_cm(params, cfg: SDFModelConfig, rays_xyz, vd, normal, sdf, k0,
 
 
 def forward(params, buffers, cfg: SDFModelConfig, box: SceneBox, rays_o,
-            rays_d, viewdirs, s_val, near: float, bg: float):
+            rays_d, viewdirs, s_val, near: float, bg: float, mesh=None):
     """Render dispatch (`sdf_voxel.py:608-641`): the sorted engine when
     ``cfg.engine == "sorted"`` (the fine stage only when its
-    displacements include 1.0), else the lattice engine."""
+    displacements include 1.0), else the lattice engine.  Under spatial
+    grid sharding (a ``mesh`` with sp > 1, ``parallel/spatial_train.py``)
+    the sorted engine falls back to the lattice pipeline, which serves
+    the sp-sharded gathers."""
+    sorted_ok = cfg.engine == "sorted" and sp_mesh(mesh) is None
     if cfg.is_fine:
-        if (cfg.engine == "sorted" and cfg.all_displace
-                and 1.0 in cfg.all_displace):
-            fwd = forward_fine_sorted
-        else:
-            fwd = forward_fine
+        if sorted_ok and cfg.all_displace and 1.0 in cfg.all_displace:
+            return forward_fine_sorted(params, buffers, cfg, box, rays_o,
+                                       rays_d, viewdirs, s_val, near, bg)
+        fwd = forward_fine
+    elif sorted_ok:
+        return forward_coarse_sorted(params, buffers, cfg, box, rays_o,
+                                     rays_d, viewdirs, s_val, near, bg)
     else:
-        fwd = forward_coarse_sorted if cfg.engine == "sorted" else forward_coarse
+        fwd = forward_coarse
+    sp_kw = {} if sp_mesh(mesh) is None else {"mesh": mesh}
     return fwd(params, buffers, cfg, box, rays_o, rays_d, viewdirs, s_val,
-               near, bg)
+               near, bg, **sp_kw)
+
+
+def _field_sample(cfg: SDFModelConfig, box: SceneBox, field, pts, gather_fn):
+    """The fused field's trilinear gather: cell-packed on one device, the
+    sharded gather (global index space) under sp."""
+    if gather_fn is None:
+        return trilinear_sample(field, pts, box, packed=True)
+    sizes = torch.tensor(cfg.world_size, dtype=torch.float32,
+                         device=pts.device)
+    return gather_fn(field, box.normalize(pts) * (sizes - 1.0),
+                     cfg.world_size[0])
+
+
+def _gather_fn(mesh):
+    """The sharded gather under sp, else None (the dense gathers)."""
+    return None if sp_mesh(mesh) is None else make_spatial_gather(mesh)
+
+
+def _smooth(cfg: SDFModelConfig, sdf_grid, mesh):
+    return sharded_stencil(
+        lambda g: smooth_grid(g, cfg.smooth_ksize, cfg.smooth_sigma),
+        sdf_grid, cfg.smooth_ksize // 2, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -650,11 +683,13 @@ def _composite(s_weights, rgb, w_full, bg: float):
 
 def forward_coarse(params, buffers, cfg: SDFModelConfig, box: SceneBox,
                    rays_o, rays_d, viewdirs, s_val, near: float,
-                   bg: float) -> Dict[str, torch.Tensor]:
+                   bg: float, mesh=None) -> Dict[str, torch.Tensor]:
     """Geometry-searching / coarse render on the lattice
     (`sdf_voxel.py:644-768`): the fused ``[sdf | grad | k0]`` trilinear
     gather (cell-packed where worthwhile; backward kernel B7), NeuS alpha,
-    the double scan, top-``shade_k`` selection and the refnet head."""
+    the double scan, top-``shade_k`` selection and the refnet head.
+    ``mesh`` with sp > 1: the grids are x-slabs, smoothed and
+    differentiated with halos and served by the sharded gather."""
     n = rays_o.shape[0]
     dev = rays_o.device
 
@@ -671,13 +706,15 @@ def forward_coarse(params, buffers, cfg: SDFModelConfig, box: SceneBox,
     pts, valid, steps, sample_overflow = _lattice_samples(
         cfg, box, rays_o, rays_d, near, valid_fn)
 
+    gather_fn = _gather_fn(mesh)
     sdf_grid = params["sdf"]
     if cfg.smooth_sdf:
-        sdf_grid = smooth_grid(sdf_grid, cfg.smooth_ksize, cfg.smooth_sigma)
+        sdf_grid = _smooth(cfg, sdf_grid, mesh)
     # the gradient field comes from the raw sdf grid (`sdf_voxel.py:675`)
-    grad_field = sdf_gradient(params["sdf"], cfg.voxel_size, cfg.grad_mode)
+    grad_field = sharded_sdf_gradient(params["sdf"], cfg.voxel_size, mesh,
+                                      cfg.grad_mode)
     field = torch.cat([sdf_grid, grad_field, k0_dense(params, cfg)], dim=-1)
-    samp = trilinear_sample(field, pts, box, packed=True)  # [N, S, 4 + k0_dim]
+    samp = _field_sample(cfg, box, field, pts, gather_fn)  # [N, S, 4 + k0]
     sdf = samp[..., 0]
     gradient = samp[..., 1:4]
     k0_all = samp[..., 4:]
@@ -764,7 +801,7 @@ def _shade_coarse(params, cfg: SDFModelConfig, box: SceneBox, pts,
 
 def forward_fine(params, buffers, cfg: SDFModelConfig, box: SceneBox,
                  rays_o, rays_d, viewdirs, s_val, near: float,
-                 bg: float) -> Dict[str, torch.Tensor]:
+                 bg: float, mesh=None) -> Dict[str, torch.Tensor]:
     """Fine render on the lattice (`sdf_voxel.py:795-928`): the fused
     ``[sdf | k0]`` gather, the displacement-1.0 center taps for alpha,
     one scan, top-``shade_k`` selection, the hierarchical taps on the
@@ -782,14 +819,20 @@ def forward_fine(params, buffers, cfg: SDFModelConfig, box: SceneBox,
     pts, valid, steps, sample_overflow = _lattice_samples(
         cfg, box, rays_o, rays_d, near, valid_fn)
 
+    gather_fn = _gather_fn(mesh)
     sdf_grid = params["sdf"]
     if cfg.smooth_sdf:
-        sdf_grid = smooth_grid(sdf_grid, cfg.smooth_ksize, cfg.smooth_sigma)
+        sdf_grid = _smooth(cfg, sdf_grid, mesh)
     field = torch.cat([sdf_grid, k0_dense(params, cfg)], dim=-1)
-    samp = trilinear_sample(field, pts, box, packed=True)
+    samp = _field_sample(cfg, box, field, pts, gather_fn)
     sdf = samp[..., 0]
     k0_all = samp[..., 1:]
-    gradient, _ = center_gradient_taps(sdf_grid, pts, box, cfg.voxel_size)
+    # the tap samplers on x-slabs: the sharded gather, global sizes
+    taps = {} if gather_fn is None else dict(
+        sample_fn=lambda grid, idx: gather_fn(grid, idx, cfg.world_size[0]),
+        grid_size=cfg.world_size)
+    gradient, _ = center_gradient_taps(sdf_grid, pts, box, cfg.voxel_size,
+                                       **taps)
 
     dist = cfg.step_dist
     alpha = neus_alpha(viewdirs, sdf, gradient, dist, s_val)
@@ -831,7 +874,7 @@ def forward_fine(params, buffers, cfg: SDFModelConfig, box: SceneBox,
     if cfg.all_displace:
         all_feat, all_grad = sample_sdf_taps(
             sdf_grid, s_pts, box, cfg.all_displace, cfg.voxel_size,
-            cfg.use_grad_norm)
+            cfg.use_grad_norm, **taps)
         d = len(cfg.all_displace)
         tap_feats = [all_feat.reshape(*s_pts.shape[:2], 6 * d),
                      all_grad.reshape(*s_pts.shape[:2], 3 * d)]

@@ -182,22 +182,27 @@ _TAP_OFFS = ((0, 0, -1), (0, 0, 1), (0, -1, 0), (0, 1, 0), (-1, 0, 0), (1, 0, 0)
 
 def sample_sdf_taps(grid: torch.Tensor, xyz: torch.Tensor, box: SceneBox,
                     displace_list: Sequence[float], voxel_size: float,
-                    use_grad_norm: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+                    use_grad_norm: bool, sample_fn=None,
+                    grid_size=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Six-neighbour taps and finite-difference gradients
     (`ops/interp.py:252-320`), all 6 x D taps in one trilinear call.
 
     Returns feat [..., 6, D] ordered (z-, z+, y-, y+, x-, x+) and grad
     [..., 3, D] ordered (z, y, x), normalized per level over the axis dim
-    when ``use_grad_norm``."""
+    when ``use_grad_norm``.  ``sample_fn(grid, idx)`` overrides the
+    gather (the spatially sharded one, where ``grid`` is an x-slab of a
+    ``grid_size`` grid)."""
     dev = xyz.device
-    sizes = torch.tensor(grid.shape[:3], dtype=torch.float32, device=dev)
+    sizes = torch.tensor(tuple(grid_size or grid.shape[:3]),
+                         dtype=torch.float32, device=dev)
     idx = box.normalize(xyz) * (sizes - 1.0)
     displace = torch.tensor(list(displace_list), dtype=torch.float32, device=dev)
     offs = torch.tensor(_TAP_OFFS, dtype=torch.float32, device=dev)
     tap_off = offs[:, None, :] * displace[None, :, None]  # [6, D, 3]
     tap_idx = idx[..., None, None, :] + tap_off
     tap_idx = torch.minimum(torch.clamp(tap_idx, min=0.0), sizes - 1.0)
-    feat = trilinear_sample_index(grid, tap_idx)[..., 0]  # [..., 6, D]
+    gather = sample_fn if sample_fn is not None else trilinear_sample_index
+    feat = gather(grid, tap_idx)[..., 0]  # [..., 6, D]
     # post-clamp coordinate of each tap along its displaced axis
     tap_coord = torch.stack([
         tap_idx[..., 0, :, 2], tap_idx[..., 1, :, 2],
@@ -217,12 +222,13 @@ def sample_sdf_taps(grid: torch.Tensor, xyz: torch.Tensor, box: SceneBox,
 
 
 def center_gradient_taps(grid: torch.Tensor, xyz: torch.Tensor, box: SceneBox,
-                         voxel_size: float):
+                         voxel_size: float, sample_fn=None, grid_size=None):
     """The displacement-1.0 tap pass of the fine forward, reordered to
     xyz (`ops/interp.py:323-344`): (grad_xyz [..., 3], feat [..., 6]
     ordered (x-, x+, y-, y+, z-, z+))."""
     feat, grad = sample_sdf_taps(grid, xyz, box, (1.0,), voxel_size,
-                                 use_grad_norm=False)
+                                 use_grad_norm=False, sample_fn=sample_fn,
+                                 grid_size=grid_size)
     feat = feat[..., :, 0]
     grad = grad[..., :, 0]
     feat_xyz = torch.cat([feat[..., 4:6], feat[..., 2:4], feat[..., 0:2]],

@@ -7,10 +7,20 @@ the flags of the JAX package's ``run.py`` plus ``--device``.
         --expname demo --output_dir ./results --mesh_resolution 256
 
 ``--device`` defaults to ``cuda``.  Training ends with a test-view render
-and a 512^3 mesh of the last stage, as the JAX CLI does.  ``--mesh``
-takes ``auto``, ``none`` or ``dp=1``: the port trains on one device, and
-``dp=N`` with N > 1 raises until data parallelism is ported (ROADMAP
-item A9).
+and a 512^3 mesh of the last stage, as the JAX CLI does.
+
+Under ``torch.distributed.run`` (one process per rank) ``--mesh`` takes
+``auto`` (dp over every rank), ``none`` or ``dp=N[,sp=M]`` with N * M
+the world size (``parallel/mesh.py``): rays over dp, the ``sdf`` / ``k0``
+grids in x-slabs over sp (the lattice engine).  ``--dist_backend`` is
+``nccl`` (a card per rank) or ``gloo`` (the CPU, or ranks sharing a
+card); a rank's device is ``cuda:LOCAL_RANK`` unless ``--device`` names
+one.  Rank 0 logs and writes checkpoints, and alone runs the final
+evaluation; the other ranks wait until training is done and exit::
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m fgs_nerf_tpu_torch.run --mesh dp=2 --dist_backend gloo \
+        --device cpu --config quick_synthetic --expname demo
 """
 from __future__ import annotations
 
@@ -56,38 +66,54 @@ def config_parser() -> argparse.ArgumentParser:
                    help="do not optimize; reload weights and render the "
                         "render_poses camera path")
     p.add_argument("--mesh", type=str, default="auto",
-                   help="'auto', 'none' or 'dp=1' (one device)")
+                   help="'auto', 'none' or 'dp=N[,sp=M]' (N * M ranks "
+                        "under torch.distributed.run)")
+    p.add_argument("--dist_backend", type=str, default=None,
+                   choices=("nccl", "gloo"),
+                   help="process-group backend (default: nccl on cuda, "
+                        "gloo on cpu)")
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device: cuda (the default) or cpu")
+                   help="torch device: cuda (the default; cuda:LOCAL_RANK "
+                        "under a launcher), cuda:N or cpu")
     return p
-
-
-def _check_mesh(spec: str) -> None:
-    if spec in ("auto", "none"):
-        return
-    for part in spec.split(","):
-        name, _, n = part.partition("=")
-        if name.strip() not in ("dp", "sp") or not n.strip().isdigit():
-            raise SystemExit(f"--mesh {spec!r}: expected 'auto', 'none' or "
-                             "'dp=N[,sp=M]'")
-        if int(n) > 1:
-            raise NotImplementedError(
-                f"--mesh {spec}: the port trains on one device; data and "
-                "spatial parallelism are not ported yet (ROADMAP item A9)")
 
 
 def main(argv=None) -> None:
     args = config_parser().parse_args(argv)
-    _check_mesh(args.mesh)
 
     from fgs_nerf_tpu_torch.config.base import load_config
     from fgs_nerf_tpu_torch.device import resolve_device
+    from fgs_nerf_tpu_torch.parallel import mesh as mesh_lib
 
     try:
         cfg = load_config(args.config)
     except FileNotFoundError as e:
         raise SystemExit(str(e)) from None
-    dev = resolve_device(args.device)
+    launched = any(k in os.environ for k in mesh_lib.ENV_KEYS)
+    dev = resolve_device(mesh_lib.rank_device(args.device) if launched
+                         else args.device)
+    if dev.type == "cuda" and dev.index is not None:
+        import torch
+
+        torch.cuda.set_device(dev)
+    mesh_lib.maybe_distributed_init(
+        args.dist_backend or mesh_lib.default_backend(dev), dev)
+    try:
+        mesh = mesh_lib.build_mesh(args.mesh, device=dev)
+    except ValueError as e:
+        raise SystemExit(f"--mesh {args.mesh!r}: {e}") from None
+    try:
+        _main(args, cfg, dev, mesh)
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _main(args, cfg, dev, mesh) -> None:
+    from fgs_nerf_tpu_torch.parallel.mesh import is_writer
+
     if args.dataset_path:
         cfg["data"]["datadir"] = args.dataset_path
     if args.dataset_type:
@@ -99,24 +125,27 @@ def main(argv=None) -> None:
     os.makedirs(out_dir, exist_ok=True)
     ts = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
     log = logging.getLogger("fgs")
-    log.setLevel(logging.INFO)
+    # rank 0 alone logs at INFO and keeps the log file
+    log.setLevel(logging.INFO if is_writer(mesh) else logging.WARNING)
     fmt = logging.Formatter("%(asctime)s - %(levelname)s - %(message)s")
-    handlers = [logging.StreamHandler(),
-                logging.FileHandler(os.path.join(out_dir,
-                                                 f"{ts}_{args.mode}.log"))]
+    handlers = [logging.StreamHandler()]
+    if is_writer(mesh):
+        handlers.append(logging.FileHandler(
+            os.path.join(out_dir, f"{ts}_{args.mode}.log")))
     for h in handlers:
         h.setFormatter(fmt)
         log.addHandler(h)
     try:
-        _run(args, cfg, out_dir, dev, log)
+        _run(args, cfg, out_dir, dev, log, mesh)
     finally:
         for h in handlers:
             log.removeHandler(h)
             h.close()
 
 
-def _run(args, cfg, out_dir, dev, log) -> None:
+def _run(args, cfg, out_dir, dev, log, mesh=None) -> None:
     from fgs_nerf_tpu_torch.data.dataset import load_dataset
+    from fgs_nerf_tpu_torch.parallel.mesh import barrier, is_writer
 
     data_dict = load_dataset(cfg)
     log.info(f"dataset: {cfg['data']['dataset_type']} "
@@ -124,6 +153,8 @@ def _run(args, cfg, out_dir, dev, log) -> None:
              f"near/far={data_dict['near']}/{data_dict['far']} device={dev}")
 
     if args.render_only:
+        if not is_writer(mesh):
+            return
         from fgs_nerf_tpu_torch.eval.evaluator import render_pose_path
 
         render_pose_path(_find_checkpoint(out_dir), cfg, data_dict, out_dir,
@@ -141,12 +172,17 @@ def _run(args, cfg, out_dir, dev, log) -> None:
         run_training(cfg, data_dict, out_dir, stages=tuple(stages),
                      dvgo_init=args.dvgo_init, i_print=args.i_print,
                      i_validate=args.i_validate, resume=args.resume,
-                     logger=log, device=dev)
-        # end-of-training eval render + mesh of the last stage
-        _evaluate(args, cfg, data_dict, out_dir, log, dev, mesh_resolution=512)
+                     logger=log, device=dev, mesh=mesh)
+        # every rank has trained; rank 0 alone evaluates
+        barrier(mesh)
+        if is_writer(mesh):
+            # end-of-training eval render + mesh of the last stage
+            _evaluate(args, cfg, data_dict, out_dir, log, dev,
+                      mesh_resolution=512)
     elif args.mode == "eval":
-        _evaluate(args, cfg, data_dict, out_dir, log, dev,
-                  mesh_resolution=args.mesh_resolution)
+        if is_writer(mesh):
+            _evaluate(args, cfg, data_dict, out_dir, log, dev,
+                      mesh_resolution=args.mesh_resolution)
     else:
         raise SystemExit(f"unknown mode {args.mode}")
 

@@ -64,10 +64,24 @@ def save_checkpoint(path: str, *, global_step: int, params: Dict[str, Any],
                     sdf_mask: Optional[torch.Tensor] = None,
                     model_kwargs: Optional[Dict[str, Any]] = None,
                     xyz_min=None, xyz_max=None,
-                    lrs: Optional[Dict[str, float]] = None) -> None:
+                    lrs: Optional[Dict[str, float]] = None,
+                    mesh=None) -> None:
     """Write one stage checkpoint (`train/checkpoint.py:62-110`);
     ``opt_state`` is the port's ``AdamState``.  The file appears under
-    ``path`` only once complete (write to ``.tmp``, then rename)."""
+    ``path`` only once complete (write to ``.tmp``, then rename).  Under
+    a ``mesh`` every rank calls it with the full trees (grid slabs
+    gathered first, ``parallel/spatial_train.py:gather_spatial``): rank 0
+    writes and every rank waits until the file is there."""
+    from fgs_nerf_tpu_torch.parallel.mesh import barrier, is_writer
+
+    if is_writer(mesh):
+        _write(path, global_step, params, opt_state, sdf_mask, model_kwargs,
+               xyz_min, xyz_max, lrs)
+    barrier(mesh)
+
+
+def _write(path, global_step, params, opt_state, sdf_mask, model_kwargs,
+           xyz_min, xyz_max, lrs) -> None:
     flat: Dict[str, np.ndarray] = {}
     _flatten("params", params, flat)
     if opt_state is not None:

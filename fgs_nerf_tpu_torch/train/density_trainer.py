@@ -28,6 +28,7 @@ from fgs_nerf_tpu_torch.models import sdf_voxel as M
 from fgs_nerf_tpu_torch.optim.masked_adam import (
     ParamOpts, adam_update, init_state, tree_map,
 )
+from fgs_nerf_tpu_torch.parallel import mesh as mesh_lib
 from fgs_nerf_tpu_torch.train import checkpoint as ckpt_lib
 from fgs_nerf_tpu_torch.train import schedules
 from fgs_nerf_tpu_torch.train.stage_common import (
@@ -35,7 +36,7 @@ from fgs_nerf_tpu_torch.train.stage_common import (
     config_passthrough, drop_pervoxel_lr, gather_view_rays, pg_deduction,
 )
 from fgs_nerf_tpu_torch.train.trainer import (
-    StageResult, param_grads, weight_metrics,
+    StageResult, dp_reduce, param_grads, weight_metrics,
 )
 
 
@@ -72,14 +73,18 @@ def make_density_loss_and_grads(cfg_model: D.DensityModelConfig,
 def make_density_train_step(cfg_model: D.DensityModelConfig, box: SceneBox,
                             opts: Dict[str, ParamOpts], *, near: float,
                             bg: float, n_rand: int, weight_main: float,
-                            weight_entropy_last: float, weight_rgbper: float):
+                            weight_entropy_last: float, weight_rgbper: float,
+                            mesh=None):
     """The DVGO train step (`train/density_trainer.py:43-106`):
     ``step(params, opt_state, buffers, rays_o, rays_d, viewdirs, target,
     lrs) -> (new_params, new_opt_state, metrics)``, the masked Adam
     update with the stage's per-voxel learning rate; every metric is a
-    0-d tensor on the parameters' device."""
+    0-d tensor on the parameters' device.  Under a dp ``mesh`` the rays
+    are this rank's shard of ``n_rand`` and gradients and metrics are
+    averaged over dp before the update."""
     loss_and_grads = make_density_loss_and_grads(
-        cfg_model, box, near=near, bg=bg, n_rand=n_rand,
+        cfg_model, box, near=near, bg=bg,
+        n_rand=n_rand // (mesh.dp if mesh is not None else 1),
         weight_main=weight_main, weight_entropy_last=weight_entropy_last,
         weight_rgbper=weight_rgbper)
 
@@ -88,11 +93,13 @@ def make_density_train_step(cfg_model: D.DensityModelConfig, box: SceneBox,
         render, loss, main, grads = loss_and_grads(
             params, buffers, rays_o, rays_d, viewdirs, target)
         with torch.no_grad():
+            metrics = {"loss": loss, "mse": main,
+                       **weight_metrics(render["weights"])}
+        grads, metrics = dp_reduce(mesh, grads, metrics)
+        with torch.no_grad():
             new_params, new_opt = adam_update(params, grads, opt_state, lrs,
                                               opts,
                                               per_lr=buffers.get("per_lr"))
-            metrics = {"loss": loss, "mse": main,
-                       **weight_metrics(render["weights"])}
         return new_params, new_opt, metrics
 
     return step_fn
@@ -102,12 +109,18 @@ def train_density_stage(cfg, data_dict: Dict[str, Any], xyz_min: np.ndarray,
                         xyz_max: np.ndarray, out_dir: str, *, logger=None,
                         seed: int = 777, i_print: int = 500,
                         n_iters_override: Optional[int] = None,
-                        device: DeviceLike = None) -> StageResult:
+                        device: DeviceLike = None, mesh=None) -> StageResult:
     """Run the DVGO geometry search on ``device`` (None: the CUDA card)
     and write ``geometry_searching_last.npz``
-    (`train/density_trainer.py:109-259`)."""
+    (`train/density_trainer.py:109-259`); on a ``mesh``, dp only: the
+    rays are sharded, the density grids replicated."""
     log = logger or logging.getLogger("fgs")
     dev = resolve_device(device)
+    if mesh is not None and mesh.sp > 1:
+        raise ValueError(
+            "spatial grid sharding (sp > 1) is wired for the SDF stages "
+            "only; the dvgo density init replicates its (small, "
+            "160^3-class) grids — run --dvgo_init with a dp-only mesh")
     cfg_model_blk = dict(cfg.get("dvgo_model", {}))
     cfg_train = dict(cfg.get("dvgo", {}))
     if not cfg_model_blk or not cfg_train:
@@ -151,6 +164,9 @@ def train_density_stage(cfg, data_dict: Dict[str, Any], xyz_min: np.ndarray,
             params, opts, buffers, cnt, clamp_param="density",
             clamp_value=-100.0)
 
+    if mesh is not None and n_rand % mesh.dp:
+        raise ValueError(f"N_rand={n_rand} must divide dp={mesh.dp}")
+    mesh_lib.check_replicas(mesh, params)
     opt_state = init_state(params)
     ray_dev = [torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
                for a in (o_tr, d_tr, v_tr, rgb_tr)]
@@ -167,7 +183,8 @@ def train_density_stage(cfg, data_dict: Dict[str, Any], xyz_min: np.ndarray,
                 weight_main=float(cfg_train.get("weight_main", 1.0)),
                 weight_entropy_last=float(
                     cfg_train.get("weight_entropy_last", 0.0)),
-                weight_rgbper=float(cfg_train.get("weight_rgbper", 0.0)))
+                weight_rgbper=float(cfg_train.get("weight_rgbper", 0.0)),
+                mesh=mesh)
         return step_cache[key_]
 
     n_iters = n_iters_override or int(cfg_train["N_iters"])
@@ -192,7 +209,7 @@ def train_density_stage(cfg, data_dict: Dict[str, Any], xyz_min: np.ndarray,
         r = rng.integers(0, shape_tr[1], n_rand)
         c = rng.integers(0, shape_tr[2], n_rand)
         bi, ri, ci = to_device(np.stack([b, r, c]), dev)
-        batch = [a[bi, ri, ci] for a in ray_dev]
+        batch = mesh_lib.shard_batch(mesh, *(a[bi, ri, ci] for a in ray_dev))
 
         names = list(lr_state.lrs)
         scal = to_device([lr_state.lrs[k] for k in names], dev, torch.float32)
@@ -209,7 +226,8 @@ def train_density_stage(cfg, data_dict: Dict[str, Any], xyz_min: np.ndarray,
     ckpt_lib.save_checkpoint(
         ckpt_path, global_step=n_iters, params=params, opt_state=opt_state,
         sdf_mask=sdf_mask, model_kwargs=dataclasses.asdict(cfg_m),
-        xyz_min=box.xyz_min, xyz_max=box.xyz_max, lrs=lr_state.lrs)
+        xyz_min=box.xyz_min, xyz_max=box.xyz_max, lrs=lr_state.lrs,
+        mesh=mesh)
     log.info(f"[dvgo] checkpoint saved at {ckpt_path}")
     return StageResult(params=params, cfg_model=cfg_m, box=box,
                        ckpt_path=ckpt_path,

@@ -4,6 +4,12 @@ Port of ``fgs_nerf_tpu/train/losses.py:19-137`` over the render dicts of
 both engines: the sorted engine hands over the shaded rgb as three
 [N, S] planes (``sel_rgb_ch``) and n.v per sample (``ndv``), the lattice
 engine ``sel_rgb`` [N, K, 3] and ``normal`` [N, S, 3].
+
+Under a ``mesh`` the rays are this rank's dp shard and the trainer
+averages gradients over dp: the per-ray means need nothing more, and
+the orientation term, a sum over the batch, is scaled by dp so that the
+mean over the shards is the sum over the global batch.  With sp > 1 the
+grid terms run on x-slabs (``ops/tv.py``, ``parallel/spatial.py``).
 """
 from __future__ import annotations
 
@@ -12,8 +18,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from fgs_nerf_tpu_torch.ops.stencils import sdf_gradient
 from fgs_nerf_tpu_torch.ops.tv import density_tv_loss, k0_tv_loss
+from fgs_nerf_tpu_torch.parallel.spatial import sharded_sdf_gradient
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,8 +43,8 @@ def mse(a, b):
 def compute_losses(render: Dict[str, Any], target: torch.Tensor,
                    viewdirs: torch.Tensor, params: Dict[str, Any], cfg_model,
                    w: LossWeights, sdf_tv: float, smooth_grad_tv: float,
-                   tv_on, nonempty_mask: Optional[torch.Tensor]
-                   ) -> Dict[str, torch.Tensor]:
+                   tv_on, nonempty_mask: Optional[torch.Tensor],
+                   mesh=None) -> Dict[str, torch.Tensor]:
     """Returns a dict with 'loss' plus the individual terms
     (`train/losses.py:38-137`)."""
     n_rays = target.shape[0]
@@ -73,6 +79,8 @@ def compute_losses(render: Dict[str, Any], target: torch.Tensor,
             ndv = torch.sum(render["normal"] * (-viewdirs[:, None, :]), dim=-1)
         ori = torch.sum(render["weights"].detach()
                         * torch.clamp(ndv, max=0.0) ** 2)
+        if mesh is not None:
+            ori = ori * mesh.dp
         losses["orientation"] = ori
         loss = loss + w.weight_orientation * ori
 
@@ -82,26 +90,27 @@ def compute_losses(render: Dict[str, Any], target: torch.Tensor,
         loss = loss + w.sigmoid_rgb_loss * sig
 
     if w.weight_tv_density > 0:
-        grad_field = sdf_gradient(params["sdf"], cfg_model.voxel_size,
-                                  cfg_model.grad_mode)
+        grad_field = sharded_sdf_gradient(params["sdf"], cfg_model.voxel_size,
+                                          mesh, cfg_model.grad_mode)
         tv_gate = torch.as_tensor(tv_on, dtype=torch.float32,
                                   device=grad_field.device)
         tv_sg = density_tv_loss(params["sdf"], grad_field, cfg_model.voxel_size,
                                 sdf_tv=0.0, smooth_grad_tv=smooth_grad_tv,
-                                nonempty_mask=nonempty_mask)
+                                nonempty_mask=nonempty_mask, mesh=mesh)
         loss = loss + tv_gate * w.weight_tv_density * tv_sg
         losses["tv_smooth_grad"] = tv_sg
         if w.ori_tv:
             tv_sdf = density_tv_loss(params["sdf"], grad_field,
                                      cfg_model.voxel_size, sdf_tv=sdf_tv,
                                      smooth_grad_tv=0.0,
-                                     nonempty_mask=nonempty_mask)
+                                     nonempty_mask=nonempty_mask, mesh=mesh)
             loss = loss + tv_gate * w.weight_tv_density * tv_sdf
             losses["tv_sdf"] = tv_sdf
             if w.weight_tv_k0 > 0:
                 from fgs_nerf_tpu_torch.models.sdf_voxel import k0_dense
 
-                tv_k0 = k0_tv_loss(k0_dense(params, cfg_model), nonempty_mask)
+                tv_k0 = k0_tv_loss(k0_dense(params, cfg_model), nonempty_mask,
+                                   mesh=mesh)
                 loss = loss + tv_gate * w.weight_tv_k0 * tv_k0
                 losses["tv_k0"] = tv_k0
 

@@ -2,7 +2,8 @@
 
 Stages communicate only through checkpoint files, as in the reference:
 geometry_searching_last -> mask cache + bbox shrink; coarse_last -> the
-fine SDF warm start.
+fine SDF warm start.  Under a ``mesh`` every rank runs the pipeline:
+rank 0 writes each checkpoint, every rank waits for it and reads it.
 """
 from __future__ import annotations
 
@@ -21,10 +22,10 @@ def run_training(cfg, data_dict: Dict, out_dir: str, *,
                  logger: Optional[logging.Logger] = None,
                  n_iters_override: Optional[Dict[str, int]] = None,
                  i_print: int = 500, i_validate: int = 0, resume: bool = False,
-                 dvgo_init: bool = False,
-                 device: DeviceLike = None) -> Dict[str, StageResult]:
-    """Train the requested stages on ``device`` (None: the CUDA card)
-    (`train/pipeline.py:19-83`, without the device mesh: one device).
+                 dvgo_init: bool = False, device: DeviceLike = None,
+                 mesh=None) -> Dict[str, StageResult]:
+    """Train the requested stages on ``device`` (None: the CUDA card), or
+    as this rank of ``mesh`` (`train/pipeline.py:19-83`).
     ``dvgo_init`` trains the geometry search with the DVGO density model
     (``train/density_trainer.py``); its checkpoint feeds the later stages
     as an SDF geometry checkpoint would."""
@@ -37,7 +38,7 @@ def run_training(cfg, data_dict: Dict, out_dir: str, *,
     geo_ckpt = os.path.join(out_dir, "geometry_searching_last.npz")
     coarse_ckpt = os.path.join(out_dir, "coarse_last.npz")
     common = dict(logger=log, i_print=i_print, i_validate=i_validate,
-                  resume=resume, device=dev)
+                  resume=resume, device=dev, mesh=mesh)
 
     if "geometry_searching" in stages:
         xyz_min, xyz_max = bbox_lib.compute_bbox_by_cam_frustrm(cfg, data_dict)
@@ -50,7 +51,7 @@ def run_training(cfg, data_dict: Dict, out_dir: str, *,
 
             results["geometry_searching"] = train_density_stage(
                 cfg, data_dict, xyz_min, xyz_max, out_dir, logger=log,
-                i_print=i_print, device=dev,
+                i_print=i_print, device=dev, mesh=mesh,
                 n_iters_override=n_iters_override.get("geometry_searching"))
         else:
             results["geometry_searching"] = trainer.train_stage(

@@ -2,15 +2,23 @@
 fine) on either engine, and the stage driver around it.
 
 Port of ``fgs_nerf_tpu/train/trainer.py``.  ``make_train_step``
-(``:117-212``) runs without the dp ``shard_map`` and the spatial
-``gather_fn``: one step is forward + losses + backward (+ the fine-stage
-TV injection when asked) + masked Adam, with the same arguments and
-metrics as the JAX step; ``models.sdf_voxel.forward`` chooses the sorted
-or the lattice engine from the config.  PyTorch runs eagerly, so the
-step is a plain function; it returns new parameter and optimizer-state
-dicts and leaves its inputs untouched.
+(``:117-212``): one step is forward + losses + backward (+ the
+fine-stage TV injection when asked) + masked Adam, with the same
+arguments and metrics as the JAX step; ``models.sdf_voxel.forward``
+chooses the sorted or the lattice engine from the config.  PyTorch runs
+eagerly, so the step is a plain function; it returns new parameter and
+optimizer-state dicts and leaves its inputs untouched.
 
-``train_stage`` (``:215-667``) runs one stage on one device: the
+Under a ``mesh`` (``parallel/mesh.py``, one process per rank) each rank
+runs the step on its dp shard of the rays (`:63-115`: rays never
+interact), then the gradients and the step metrics are averaged over
+the dp group by one flattened ``all_reduce`` before the TV injection and
+Adam, so every replica applies the same update.  With sp > 1 ``sdf`` /
+``k0`` and their moments are x-slabs, the field gathers go through the
+sharded gather (the sorted engine falls back to the lattice pipeline)
+and grid gradients stay slab-local: nothing is summed over sp.
+
+``train_stage`` (``:215-667``) runs one stage on one device or mesh: the
 progressive-scaling rungs with refnet resets, the prior stage's mask
 cache and nonempty mask, the coarse -> fine SDF warm start, the ray
 samplers, per-voxel learning rates, resume, the incremental voxel box,
@@ -41,6 +49,11 @@ from fgs_nerf_tpu_torch.optim.masked_adam import (
 )
 from fgs_nerf_tpu_torch.ops.sdf2alpha import s_val_schedule
 from fgs_nerf_tpu_torch.ops.tv import tv_grad
+from fgs_nerf_tpu_torch.parallel import mesh as mesh_lib
+from fgs_nerf_tpu_torch.parallel.spatial import grid_slab
+from fgs_nerf_tpu_torch.parallel.spatial_train import (
+    GRID_PARAMS, gather_spatial, mesh_sp_size, place_spatial,
+)
 from fgs_nerf_tpu_torch.train import checkpoint as ckpt_lib
 from fgs_nerf_tpu_torch.train import schedules
 from fgs_nerf_tpu_torch.train.losses import LossWeights, compute_losses
@@ -99,24 +112,56 @@ def weight_metrics(w_full: torch.Tensor) -> Dict[str, torch.Tensor]:
 def make_loss_and_grads(cfg_model: M.SDFModelConfig, box: SceneBox,
                         loss_w: LossWeights, *, near: float, bg: float,
                         sdf_tv: float, smooth_grad_tv: float,
-                        use_nonempty_mask: bool):
+                        use_nonempty_mask: bool, mesh=None):
     """``fn(params, buffers, rays_o, rays_d, viewdirs, target, s_val,
     tv_on) -> (render, losses, grads)``: the differentiated half of the
-    step (`train/trainer.py:153-166`); grads mirror the params dict."""
-
+    step (`train/trainer.py:153-166`); grads mirror the params dict.
+    Under a mesh they are this rank's own (not yet averaged over dp)."""
     def fn(params, buffers, rays_o, rays_d, viewdirs, target, s_val, tv_on):
         p = tree_map(lambda t: t.detach().requires_grad_(True), params)
         sv = p["s_val"][0] if cfg_model.s_learn else s_val
         render = M.forward(p, buffers, cfg_model, box, rays_o, rays_d,
-                           viewdirs, sv, near=near, bg=bg)
+                           viewdirs, sv, near=near, bg=bg, mesh=mesh)
         nonempty = buffers.get("nonempty_mask") if use_nonempty_mask else None
         losses = compute_losses(render, target, viewdirs, p, cfg_model,
                                 loss_w, sdf_tv=sdf_tv,
                                 smooth_grad_tv=smooth_grad_tv, tv_on=tv_on,
-                                nonempty_mask=nonempty)
+                                nonempty_mask=nonempty, mesh=mesh)
         return render, losses, param_grads(losses["loss"], p)
 
     return fn
+
+
+def step_metrics(render, losses) -> Dict[str, torch.Tensor]:
+    """The step's metrics (`train/trainer.py:195-210`), 0-d tensors."""
+    one = torch.ones((), dtype=torch.float32, device=render["weights"].device)
+    return {
+        "loss": losses["loss"].detach(),
+        "mse": losses["mse"].detach(),
+        **weight_metrics(render["weights"]),
+        "mask_frac": torch.sum(render["live"]) / torch.maximum(
+            torch.sum(render["valid"]).float(), one),
+        "overflow_frac": torch.mean(render["overflow"].float()),
+        "overflow_sample_frac": torch.mean(
+            render["overflow_sample"].float()),
+        "overflow_shade_frac": torch.mean(
+            render["overflow_shade"].float()),
+    }
+
+
+def dp_reduce(mesh, grads: Dict[str, Any], metrics: Dict[str, torch.Tensor]):
+    """Gradients and metrics averaged over dp in one ``all_reduce``: the
+    global batch's gradient (equal shards), and metrics every rank then
+    reads alike (loss, mse, the overflow fractions that drive capacity
+    escalation), so no rank takes a host decision of its own."""
+    if mesh is None:
+        return grads, metrics
+    names = list(metrics)
+    leaves, mvec = mesh_lib.dp_mean(
+        mesh, tree_leaves(grads),
+        torch.stack([metrics[k].float() for k in names]))
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), grads), dict(zip(names, mvec.unbind(0)))
 
 
 def make_train_step(cfg_model: M.SDFModelConfig, box: SceneBox,
@@ -124,20 +169,26 @@ def make_train_step(cfg_model: M.SDFModelConfig, box: SceneBox,
                     near: float, bg: float, n_rand: int, sdf_tv: float,
                     smooth_grad_tv: float, inject_tv: bool, tv_dense: bool,
                     weight_tv_density: float, weight_tv_k0: float,
-                    use_nonempty_mask: bool):
+                    use_nonempty_mask: bool, mesh=None):
     """Build the train step for one (stage, rung, tv-config).
 
     ``step(params, opt_state, buffers, rays_o, rays_d, viewdirs, target,
     s_val, lrs, tv_on) -> (new_params, new_opt_state, metrics)``; every
-    metric is a 0-d tensor on the parameters' device."""
+    metric is a 0-d tensor on the parameters' device.  Under a ``mesh``
+    the rays are this rank's dp shard, ``params`` its placement (grid
+    slabs when sp > 1) and the metrics are the dp means."""
     loss_and_grads = make_loss_and_grads(
         cfg_model, box, loss_w, near=near, bg=bg, sdf_tv=sdf_tv,
-        smooth_grad_tv=smooth_grad_tv, use_nonempty_mask=use_nonempty_mask)
+        smooth_grad_tv=smooth_grad_tv, use_nonempty_mask=use_nonempty_mask,
+        mesh=mesh)
 
     def step_fn(params, opt_state, buffers, rays_o, rays_d, viewdirs, target,
                 s_val, lrs, tv_on):
         render, losses, grads = loss_and_grads(
             params, buffers, rays_o, rays_d, viewdirs, target, s_val, tv_on)
+        with torch.no_grad():
+            metrics = step_metrics(render, losses)
+        grads, metrics = dp_reduce(mesh, grads, metrics)
 
         if inject_tv:
             # fine-stage TV injected straight into the gradient
@@ -146,11 +197,11 @@ def make_train_step(cfg_model: M.SDFModelConfig, box: SceneBox,
             if weight_tv_density > 0 and sdf_tv > 0:
                 w = weight_tv_density * sdf_tv / n_rand * scale * tv_on
                 grads["sdf"] = tv_grad(params["sdf"], grads["sdf"], w, w, w,
-                                       tv_dense)
+                                       tv_dense, mesh=mesh)
             if weight_tv_k0 > 0:
                 wk = weight_tv_k0 / n_rand * scale * tv_on
                 grads["k0"] = tv_grad(params["k0"], grads["k0"], wk, wk, wk,
-                                      tv_dense)
+                                      tv_dense, mesh=mesh)
 
         with torch.no_grad():
             new_params, new_opt = adam_update(params, grads, opt_state, lrs,
@@ -160,21 +211,6 @@ def make_train_step(cfg_model: M.SDFModelConfig, box: SceneBox,
                 new_params["s_val"] = torch.as_tensor(
                     s_val, dtype=torch.float32,
                     device=params["s_val"].device).reshape(1).clone()
-
-            one = torch.ones((), dtype=torch.float32,
-                             device=render["weights"].device)
-            metrics = {
-                "loss": losses["loss"].detach(),
-                "mse": losses["mse"].detach(),
-                **weight_metrics(render["weights"]),
-                "mask_frac": torch.sum(render["live"]) / torch.maximum(
-                    torch.sum(render["valid"]).float(), one),
-                "overflow_frac": torch.mean(render["overflow"].float()),
-                "overflow_sample_frac": torch.mean(
-                    render["overflow_sample"].float()),
-                "overflow_shade_frac": torch.mean(
-                    render["overflow_shade"].float()),
-            }
         return new_params, new_opt, metrics
 
     return step_fn
@@ -201,6 +237,23 @@ class StageResult:
     kept_ratio: Optional[float] = None
 
 
+def _place(mesh, params, opt_state, buffers):
+    """Full parameters, moments and grid buffers -> this rank's placement:
+    x-slabs of the grids when sp > 1 (`train/trainer.py:320-337`);
+    unchanged otherwise (dp replicas)."""
+    if mesh_sp_size(mesh) == 1:
+        return params, opt_state, buffers
+    params, opt_state = place_spatial(mesh, params, opt_state)
+    buffers = dict(buffers)
+    if "nonempty_mask" in buffers:
+        buffers["nonempty_mask"] = grid_slab(mesh, buffers["nonempty_mask"])
+    if "per_lr" in buffers:
+        buffers["per_lr"] = {k: (grid_slab(mesh, v) if k in GRID_PARAMS
+                                 else v)
+                             for k, v in buffers["per_lr"].items()}
+    return params, opt_state, buffers
+
+
 def _cam_origins(data_dict, dev) -> torch.Tensor:
     return torch.as_tensor(
         np.asarray(data_dict["poses"])[data_dict["i_train"], :3, 3],
@@ -213,12 +266,19 @@ def train_stage(cfg, stage: str, data_dict: Dict[str, Any],
                 mask_ckpt_path: Optional[str] = None, logger=None,
                 seed: int = 777, i_print: int = 500,
                 n_iters_override: Optional[int] = None, resume: bool = False,
-                i_validate: int = 0, device: DeviceLike = None) -> StageResult:
+                i_validate: int = 0, device: DeviceLike = None,
+                mesh=None) -> StageResult:
     """Run one training stage end to end (`train/trainer.py:238-667`) on
-    ``device`` (None: the CUDA card)."""
+    ``device`` (None: the CUDA card), or on this rank's share of a
+    ``mesh``: every rank runs this function on the same data and seed;
+    set-up, handoffs and rungs run on full grids, the steps on the
+    rank's placement (:func:`_place`), and rank 0 alone writes the
+    checkpoints and the validation renders.  The result holds full
+    parameters on every rank."""
     log = logger or logging.getLogger("fgs")
     dev = resolve_device(device)
     cfg_model_blk, cfg_train = stage_blocks(cfg, stage)
+    sp = mesh_sp_size(mesh)
 
     xyz_min, xyz_max, box = apply_world_bound_scale(
         cfg_model_blk, xyz_min, xyz_max, dev)
@@ -229,9 +289,12 @@ def train_stage(cfg, stage: str, data_dict: Dict[str, Any],
     def build_cfg(nv: int) -> M.SDFModelConfig:
         return M.make_model_config(stage=stage, xyz_min=xyz_min,
                                    xyz_max=xyz_max, num_voxels=nv,
-                                   **passthrough)
+                                   sp_multiple=sp, **passthrough)
 
     cfg_m = build_cfg(cur_voxels)
+    if sp > 1 and cfg_m.grid_type != "dense":
+        raise ValueError("spatial grid sharding (sp > 1) needs dense grids, "
+                         f"not grid_type={cfg_m.grid_type!r}")
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = M.init_params(gen, cfg_m, dev)
 
@@ -267,6 +330,9 @@ def train_stage(cfg, stage: str, data_dict: Dict[str, Any],
     bg = 1.0 if cfg.data.white_bkgd else 0.0
     n_rand = int(cfg_train["N_rand"])
     tv_terms = dict(cfg_train.get("tv_terms", {}))
+    if mesh is not None and n_rand % mesh.size:
+        raise ValueError(f"N_rand={n_rand} must divide the mesh size "
+                         f"{mesh.size} (axes {mesh.shape})")
 
     # ---- training rays (uploaded once; batches are gathered on device) --
     rng = np.random.default_rng(seed)
@@ -340,7 +406,7 @@ def train_stage(cfg, stage: str, data_dict: Dict[str, Any],
                 inject_tv=inject_tv, tv_dense=tv_dense,
                 weight_tv_density=loss_w.weight_tv_density,
                 weight_tv_k0=loss_w.weight_tv_k0,
-                use_nonempty_mask=use_nonempty)
+                use_nonempty_mask=use_nonempty, mesh=mesh)
         return step_cache[key_]
 
     n_iters = n_iters_override or int(cfg_train["N_iters"])
@@ -375,10 +441,22 @@ def train_stage(cfg, stage: str, data_dict: Dict[str, Any],
             lr_state = schedules.LrState(dict(rck.meta["lrs"]))
         log.info(f"[{stage}] resumed from {ckpt_path} at step {start}")
 
+    # every replica starts from rank 0's bits (same seed, same draws)
+    mesh_lib.check_replicas(mesh, params)
+    params, opt_state, buffers = _place(mesh, params, opt_state, buffers)
+
+    def full(with_opt=False):
+        """Full parameters (and moments) on every rank: a collective."""
+        return gather_spatial(mesh, params, cfg_m.world_size[0],
+                              opt_state if with_opt else None)
+
     s_val = None
     for global_step in range(1 + start, n_iters + 1):
         # progressive scaling (`train/trainer.py:460-495`)
         if global_step in pg_scale:
+            # on full grids; the mask cache's nonempty mask is rebuilt
+            # and the per-voxel rates dropped below
+            params = full()
             cur_voxels = int(cur_voxels * scale_ratio)
             new_cfg = build_cfg(cur_voxels)
             params = M.scale_volume_grid(params, new_cfg)
@@ -396,6 +474,8 @@ def train_stage(cfg, stage: str, data_dict: Dict[str, Any],
                 schedules.initial_lrs(cfg_train, set(params)))
             # reference quirk: per-voxel LR is not recomputed after a rescale
             opts, buffers = drop_pervoxel_lr(opts, buffers)
+            params, opt_state, buffers = _place(mesh, params, opt_state,
+                                                buffers)
             log.info(f"[{stage}] pg_scale at {global_step}: voxels -> "
                      f"{cur_voxels} world_size -> {cfg_m.world_size}")
 
@@ -425,6 +505,8 @@ def train_stage(cfg, stage: str, data_dict: Dict[str, Any],
             c = rng.integers(0, rgb_tr.shape[2], n_rand)
             bi, ri, ci = to_device(np.stack([b, r, c]), dev)
             batch = [a[bi, ri, ci] for a in ray_dev]
+        # every rank drew the same global batch; it keeps its dp rows
+        batch = mesh_lib.shard_batch(mesh, *batch)
 
         s_val = float(s_val_schedule(global_step, cfg_m.s_ratio, cfg_m.s_start,
                                      cfg_m.step_start))
@@ -468,7 +550,7 @@ def train_stage(cfg, stage: str, data_dict: Dict[str, Any],
             psnr_hist.extend(psnrs)
             log.info(
                 f"[{stage}] iter {global_step:6d}/{n_iters} "
-                f"loss {means['loss']:.6f} PSNR {np.mean(psnrs):5.2f} "
+                f"loss {means['loss']:.6f} PSNR {np.mean(psnrs):7.4f} "
                 f"Wmax {means['wmax_mean']:.3f} Wsum {means['wsum_mean']:.3f} "
                 f"W>0 {means['w_nonzero_frac']:.3f} "
                 f"mask% {100 * means['mask_frac']:.2f} "
@@ -511,25 +593,35 @@ def train_stage(cfg, stage: str, data_dict: Dict[str, Any],
             pick = ([int(rng.integers(0, len(i_test)))]
                     if global_step != n_iters else list(range(len(i_test))))
             sel_views = i_test[pick]
-            rc = make_render_fn(cfg_m, box, near=near, bg=bg)
-            render_viewpoints(
-                rc, params, buffers, np.asarray(data_dict["poses"])[sel_views],
-                np.asarray(data_dict["HW"])[sel_views],
-                np.asarray(data_dict["Ks"])[sel_views], conv, s_val,
-                gt_imgs=np.asarray(data_dict["images"])[sel_views],
-                masks=np.asarray(data_dict["masks"])[sel_views],
-                savedir=os.path.join(out_dir, f"render_test_{stage}"),
-                eval_ssim=True, logger=log, step=global_step)
+            params_full = full()
+            if mesh_lib.is_writer(mesh):
+                rc = make_render_fn(cfg_m, box, near=near, bg=bg)
+                render_viewpoints(
+                    rc, params_full, buffers,
+                    np.asarray(data_dict["poses"])[sel_views],
+                    np.asarray(data_dict["HW"])[sel_views],
+                    np.asarray(data_dict["Ks"])[sel_views], conv, s_val,
+                    gt_imgs=np.asarray(data_dict["images"])[sel_views],
+                    masks=np.asarray(data_dict["masks"])[sel_views],
+                    savedir=os.path.join(out_dir, f"render_test_{stage}"),
+                    eval_ssim=True, logger=log, step=global_step)
+            del params_full
+            mesh_lib.barrier(mesh)
 
         if (global_step == n_iters
                 or global_step % int(cfg_train.get("save_iter", 1 << 30)) == 0):
+            params_full, opt_full = full(with_opt=True)
             ckpt_lib.save_checkpoint(
-                ckpt_path, global_step=global_step, params=params,
-                opt_state=opt_state, sdf_mask=M.build_sdf_mask(params, cfg_m),
+                ckpt_path, global_step=global_step, params=params_full,
+                opt_state=opt_full,
+                sdf_mask=M.build_sdf_mask(params_full, cfg_m),
                 model_kwargs=dataclasses.asdict(cfg_m),
-                xyz_min=box.xyz_min, xyz_max=box.xyz_max, lrs=lr_state.lrs)
+                xyz_min=box.xyz_min, xyz_max=box.xyz_max, lrs=lr_state.lrs,
+                mesh=mesh)
             log.info(f"[{stage}] checkpoint saved at {ckpt_path}")
+            del params_full, opt_full
 
+    params = full()
     return StageResult(params=params, cfg_model=cfg_m, box=box,
                        ckpt_path=ckpt_path, psnr_history=psnr_hist,
                        last_metrics=last_metrics, kept_ratio=kept_ratio)

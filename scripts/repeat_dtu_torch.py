@@ -11,7 +11,7 @@ change, change, parent):
 
     python scripts/repeat_dtu_torch.py [--tree DIR] [--runs N] [--poison]
         [--deterministic] [--geometry_steps K [--after_phase [P]]]
-        [--stress R] [--trace_ops]
+        [--stress R] [--trace_ops] [--trace_kernels]
 
 ``--poison`` fills the caching allocator's free memory with NaN before
 every run after the first (tensors that read memory they never wrote
@@ -38,6 +38,14 @@ checksums differ from the first run's, with its stage, step and
 position, the ops before it, and its differing inputs: shape, dtype and
 the kernel call site that wrote the tensor when a kernel did (kernels
 write outside the dispatcher).
+``--trace_kernels`` checksums, per run, every input and output of every
+kernel call of the phase at its call site (B1-B7's wrappers as the
+engines call them), with, for B6, its sorted deposit keys and
+permutation, the sentinel samples' cotangents, weights and deltas and
+the non-finite values among them, and its output by row region; from
+the second run on it prints the first call whose inputs or outputs
+differ from the first run's: equal inputs with differing outputs point
+at a read past the inputs, differing inputs at their producer.
 """
 import argparse
 import json
@@ -56,6 +64,7 @@ def main():
     ap.add_argument("--after_phase", type=int, nargs="?", const=1, default=0)
     ap.add_argument("--stress", type=int, default=0)
     ap.add_argument("--trace_ops", action="store_true")
+    ap.add_argument("--trace_kernels", action="store_true")
     args = ap.parse_args()
     if args.deterministic:
         import os
@@ -99,6 +108,7 @@ def main():
     TR.make_train_step = logged_make
     traces = _trace_steps(torch, TR) if args.trace_ops else None
     stressed = _stress_sites(torch, args.stress) if args.stress else None
+    ktrace = _trace_kernels(torch, TR) if args.trace_kernels else None
     if args.geometry_steps:
         return _geometry_runs(args, torch, np, CS, TR, tree, card, losses,
                               kernels)
@@ -127,6 +137,19 @@ def main():
                 print(json.dumps({"run": i, "first_differing_op":
                                   _first_difference(runs_ops[0],
                                                     runs_ops[-1])}))
+        if ktrace is not None:
+            runs_k = ktrace["runs"]
+            runs_k.append([(site, where, [int(v) for v in sums.tolist()],
+                            names, extra)
+                           for site, where, sums, names, extra
+                           in ktrace.pop("current")])
+            ktrace["current"], ktrace["steps"] = [], {}
+            print(json.dumps({"run": i, "kernel_calls": len(runs_k[-1]),
+                              "sentinel_report": _sentinel_report(runs_k[-1]),
+                              "first_differing_call": (
+                                  _first_kernel_difference(runs_k[0],
+                                                           runs_k[-1])
+                                  if len(runs_k) > 1 else None)}))
         if stressed is not None:
             print(json.dumps({"run": i, "stress": args.stress,
                               "calls": stressed["calls"],
@@ -316,6 +339,125 @@ def _trace_steps(torch, TR):
 
     TR.make_train_step = traced_make
     return traces
+
+
+def _checksum(torch, t):
+    """Exact int64 sum of a tensor's bits (on its device)."""
+    if t.numel() == 0:
+        return torch.zeros((), dtype=torch.int64, device=t.device)
+    if t.dtype.is_floating_point:
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            t.element_size()]
+        t = t.contiguous().view(bits)
+    return t.to(torch.int64).sum()
+
+
+def _trace_kernels(torch, TR):
+    """Wrap every kernel call site: per call, the checksums of its inputs
+    and outputs (and B6's extras), tagged with (stage, step)."""
+    from fgs_nerf_tpu_torch.ops import scatter as SC
+    from fgs_nerf_tpu_torch.ops import sorted_cm as ST
+    from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
+
+    state = {"runs": [], "current": [], "where": ("setup", -1)}
+
+    def flat(x):
+        if isinstance(x, (list, tuple)):
+            return [t for v in x for t in flat(v)]
+        return [x] if isinstance(x, torch.Tensor) else []
+
+    def b6_extra(a, out):
+        rows, delta, w8t, g, n_rows = a
+        t = g.shape[0]
+        sent = rows == rows[-1]
+        r0, rl = int(rows[0]), int(rows[-1])
+        keys_s, perm = torch.sort((rows[None, :] + delta).reshape(-1),
+                                  stable=True)
+        w_s = w8t.reshape(t, 8, -1)[:, :, sent]
+        named = {"keys_s": keys_s, "perm": perm, "g_sent": g[:, sent],
+                 "w8t_sent": w_s, "delta_sent": delta[:, sent],
+                 "out_lead": out[:, :r0], "out_mid": out[:, r0:rl],
+                 "out_tail": out[:, rl:]}
+        extra = {"n_sent": int(sent.sum()),
+                 "g_sent_abs": float(g[:, sent].abs().sum()),
+                 "nonfinite_g": int((~torch.isfinite(g)).sum()),
+                 "nonfinite_w8t": int((~torch.isfinite(w8t)).sum()),
+                 "r0": r0, "rl": rl, "n_rows": int(n_rows)}
+        return named, extra
+
+    def wrap(name, fn):
+        def run(*a):
+            out = fn(*a)
+            ins, outs = flat(a), flat(out)
+            names = ([f"in{i}" for i in range(len(ins))]
+                     + [f"out{i}" for i in range(len(outs))])
+            tensors = ins + outs
+            extra = {}
+            if name == "tap_dense_accumulate_cm":
+                named, extra = b6_extra(a, out)
+                names += list(named)
+                tensors += list(named.values())
+            sums = torch.stack([_checksum(torch, x) for x in tensors]).cpu()
+            state["current"].append((name, state["where"], sums, names,
+                                     extra))
+            return out
+        return run
+
+    for mod, names in ((ST, ("window_gather_cm", "dense_accumulate_cm",
+                             "tap_window_serve_cm",
+                             "tap_dense_accumulate_cm")),
+                       (FS, ("fused_shade_cm_fwd", "fused_shade_cm_bwd")),
+                       (SC, ("dense_accumulate",))):
+        for name in names:
+            setattr(mod, name, wrap(name, getattr(mod, name)))
+
+    real_make = TR.make_train_step
+
+    def tagged_make(cfg_m, *a, **kw):
+        step = real_make(cfg_m, *a, **kw)
+
+        def run(*sa):
+            k = state.setdefault("steps", {})
+            n = k.get(cfg_m.stage, 0)
+            k[cfg_m.stage] = n + 1
+            state["where"] = (cfg_m.stage, n)
+            try:
+                return step(*sa)
+            finally:
+                state["where"] = (cfg_m.stage, f"after {n}")
+        return run
+
+    TR.make_train_step = tagged_make
+    return state
+
+
+def _sentinel_report(calls):
+    """B6 calls whose sentinel samples carry a nonzero or non-finite
+    cotangent, or whose inputs hold non-finite values."""
+    b6 = [(i, where, extra) for i, (site, where, _, _, extra)
+          in enumerate(calls) if site == "tap_dense_accumulate_cm"]
+    odd = [{"call": i, "where": where, **extra} for i, where, extra in b6
+           if extra["g_sent_abs"] != 0.0 or extra["nonfinite_g"]
+           or extra["nonfinite_w8t"]]
+    return {"b6_calls": len(b6), "odd": odd[:10], "n_odd": len(odd)}
+
+
+def _first_kernel_difference(ref, run):
+    """The first kernel call of ``run`` whose checksums differ from the
+    same call of ``ref``: which inputs, outputs and extras differ."""
+    for i, (a, b) in enumerate(zip(ref, run)):
+        if a[0] != b[0] or a[2] != b[2]:
+            diff = [n for n, x, y in zip(b[3], a[2], b[2]) if x != y]
+            return {"call": i, "site": b[0], "site_ref": a[0],
+                    "where": b[1], "differing": diff,
+                    "inputs_differ": any(n.startswith("in") for n in diff),
+                    "outputs_differ": any(not n.startswith("in")
+                                          for n in diff),
+                    "extra": b[4], "extra_ref": a[4],
+                    "sites_before": [c[0] for c in run[max(0, i - 4):i]]}
+    if len(ref) != len(run):
+        return {"calls": [len(ref), len(run)]}
+    return None
 
 
 def _first_difference(ref, run):

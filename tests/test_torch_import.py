@@ -72,8 +72,72 @@ def test_port_imports_no_jax():
                  "fgs_nerf_tpu_torch.eval.evaluator",
                  "fgs_nerf_tpu_torch.ops.fused_mlp_cm",
                  "fgs_nerf_tpu_torch.ops.cuda.fused_mlp_cm",
+                 "fgs_nerf_tpu_torch.parallel.mesh",
+                 "fgs_nerf_tpu_torch.parallel.spatial",
+                 "fgs_nerf_tpu_torch.parallel.spatial_train",
+                 "fgs_nerf_tpu_torch.parallel.launch",
+                 "fgs_nerf_tpu_torch.parallel.dryrun",
                  "fgs_nerf_tpu_torch.run"):
         assert name in res["modules"]
+
+
+def test_rank_workers_import_no_jax():
+    """The multi-process tests' rank programs (``tests/torch_rank_workers
+    .py``) and the parallel modules leave JAX and the JAX package out of
+    ``sys.modules``."""
+    probe = (
+        "import json, sys\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_rank_workers\n"
+        "import fgs_nerf_tpu_torch.parallel.mesh\n"
+        "import fgs_nerf_tpu_torch.parallel.spatial\n"
+        "import fgs_nerf_tpu_torch.parallel.spatial_train\n"
+        "import fgs_nerf_tpu_torch.parallel.launch\n"
+        "import fgs_nerf_tpu_torch.parallel.dryrun\n"
+        "torch_rank_workers.spatial_inputs()\n"
+        "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0]\n"
+        "      in ('jax', 'jaxlib', 'fgs_nerf_tpu'))))\n")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_mesh_spec_must_match_the_world(monkeypatch):
+    """``--mesh dp=2`` in a world of one process (no launcher, or a
+    ``WORLD_SIZE`` that does not match) raises ``ValueError``; none /
+    auto give no mesh."""
+    from fgs_nerf_tpu_torch.parallel.mesh import build_mesh
+
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        build_mesh("dp=2")
+    with pytest.raises(ValueError, match="needs 4 ranks"):
+        build_mesh("dp=2,sp=2")
+    assert build_mesh("none") is None and build_mesh("auto") is None
+    m = build_mesh("dp=1")
+    assert (m.dp, m.sp, m.rank, m.dp_group) == (1, 1, 0, None)
+
+
+def test_nccl_refuses_two_ranks_on_one_device(monkeypatch):
+    """NCCL with two local ranks on ``cuda:0`` raises before any
+    rendezvous, and a partial launcher environment raises too."""
+    import torch.distributed as dist
+
+    from fgs_nerf_tpu_torch.parallel.mesh import maybe_distributed_init
+
+    env = dict(RANK="1", WORLD_SIZE="2", LOCAL_RANK="1", LOCAL_WORLD_SIZE="2",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT="1")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(ValueError, match="two ranks on one device"):
+        maybe_distributed_init("nccl", "cuda:0")
+    monkeypatch.delenv("MASTER_PORT")
+    with pytest.raises(ValueError, match="MASTER_PORT missing"):
+        maybe_distributed_init("gloo", "cpu")
+    assert not dist.is_initialized()
 
 
 def test_chip_smoke_imports_no_jax(tmp_path):

@@ -297,12 +297,14 @@ def test_cli_untrained_expname_exits_cleanly(trained, tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    """Data parallelism (A9) still raises; the DVGO geometry search (A8)
-    and the LLFF loader (A10) now run."""
+    """A ``--mesh dp=2`` in one process (no launcher: a world of one)
+    exits naming the ranks it needs (A9 runs under
+    ``torch.distributed.run``); the DVGO geometry search (A8) and the
+    LLFF loader (A10) run."""
     from fgs_nerf_tpu_torch import run as R
     from fgs_nerf_tpu_torch.data.synthetic import make_synthetic_dataset
 
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(SystemExit, match="needs 2 ranks"):
         R.main(["--mesh", "dp=2", "--device", "cpu"])
     cfg = load_config("quick_synthetic")
     cfg.update(deep_update_j(dict(cfg), dict(
