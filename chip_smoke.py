@@ -187,8 +187,23 @@ launch_local``:
     ranks exit 0.  Then NCCL at world size 1 (``torch.distributed.run
     --nproc_per_node 1``, ``--mesh dp=1``): one sorted coarse step
     bit-equal to the step without a mesh.
+22. A user's capture to a trained model: write a capture
+    (``write_capture``: 30 views at 504 x 378 of the glossy sphere on an
+    inward arc of OpenCV cameras, and its COLMAP binary ``sparse/0``),
+    convert it with ``python -m fgs_nerf_tpu_torch.run_colmap
+    --skip_masks`` (``poses_bounds.npy``, ``cameras_sphere.npz``; no
+    ``colmap`` runs) and check the LLFF loader's cameras against the
+    written ones up to one similarity (centres within 1e-4 of the
+    radius); then phase 14's pipeline on the ``smart_car`` config with
+    ``--dataset_type llff`` (the full widths, the same cut depth but 8
+    fine steps), every kernel call of each stage's last-rung first step
+    held against its twin, two fine steps traced with
+    ``utils/profiling.py:trace_steps`` (the trace's path, kernel count
+    and device ms by group), then the ``llffhold`` test views' PSNR /
+    SSIM and the 512^3 mesh.
 
-B1 and B5 calls of phases 2 and 5-8 also carry a library time: one
+B1 and B5 calls of phases 2, 5-8, 14, 15 and 22 also carry a library
+time: one
 ``F.grid_sample`` (trilinear, ``align_corners=True``, zero padding) of
 the unpacked [1, C, X, Y, Z] grid at the serve's own points, held within
 1e-4 of the serve's output (it recomputes the fractions from the
@@ -230,11 +245,14 @@ small).
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+# where the device breakdowns write their (removed) traces
+TRACE_DIR = Path(__file__).resolve().parent / "results" / "chip_smoke_traces"
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12     # dense tensor-core bf16
 PEAK_F32_FLOPS = 67e12       # fp32 outside the tensor cores
@@ -398,57 +416,80 @@ def _b9_readings(outs, ref):
             float(far.double().mean()))
 
 
-_BUCKETS = (  # kernel-name fragments -> bucket, first match wins
-    ("accumulate B7", ("rowmajor_",)),
-    ("serve B5", ("tap_serve_samples",)),
+_BUCKETS = (  # (bucket, kernel-name fragments, kernel call site), first
+    # match wins; the call site (``_LAUNCHER_OF``) that launches the group
+    ("accumulate B7", ("rowmajor_",), None),
+    ("serve B5", ("tap_serve_samples",), "tap_window_serve_cm"),
     ("accumulate B6", ("tap_tile_accumulate", "tap_block_sums",
-                       "tap_run_totals")),
-    ("serve B1", ("window_gather_tiles",)),
+                       "tap_run_totals"), "tap_dense_accumulate_cm"),
+    ("serve B1", ("window_gather_tiles",), "window_gather_cm"),
     ("accumulate B2", ("cm_tile_accumulate", "cm_block_sums",
-                       "cm_run_totals")),
-    ("shade B3", ("fused_shade_fwd",)),
+                       "cm_run_totals"), "dense_accumulate_cm"),
+    ("shade B3", ("fused_shade_fwd",), "fused_shade_cm_fwd"),
     ("shade B4", ("fused_shade_bwd", "fused_shade_dw",
-                  "shade_reduce_partials")),
-    ("matmul", ("gemm", "Gemm", "cutlass")),
-    ("sort", ("sort", "radix", "Sort")),
-    ("gather/scatter", ("index", "gather", "scatter", "Index")),
-    ("reduce", ("reduce", "Reduce")),
-    ("elementwise", ("elementwise", "Elementwise", "vectorized")),
+                  "shade_reduce_partials"), "fused_shade_cm_bwd"),
+    ("matmul", ("gemm", "Gemm", "cutlass"), None),
+    ("sort", ("sort", "radix", "Sort"), None),
+    ("gather/scatter", ("index", "gather", "scatter", "Index"), None),
+    ("reduce", ("reduce", "Reduce"), None),
+    ("elementwise", ("elementwise", "Elementwise", "vectorized"), None),
 )
 
 
-def _device_breakdown(torch, run_step, step_ms, card, path="coarse"):
-    """Profile two steps; print device time per step by bucket, the top
-    kernels, and the device's idle share against the unprofiled step."""
-    from torch.profiler import ProfilerActivity, profile
+def _bucket(kernel):
+    """The ``_BUCKETS`` group of a device kernel's name ("other": none)."""
+    return next((b for b, frags, _ in _BUCKETS
+                 if any(f in kernel for f in frags)), "other")
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+def _traced_kernels(run_steps, n_steps):
+    """Trace ``run_steps()`` (``n_steps`` steps) with
+    ``utils/profiling.py:trace_steps``: device ms a step by kernel name,
+    and the kernel events a step; the trace file is removed."""
+    from fgs_nerf_tpu_torch.utils import profiling as PF
+
+    with PF.trace_steps(str(TRACE_DIR)) as tr:
+        run_steps()
+    per = _per_kernel(tr, n_steps)
+    os.remove(tr.path)
+    return per
+
+
+def _per_kernel(trace, n_steps):
+    """{kernel name: (device ms a step, launches a step)} of a written
+    ``utils/profiling.py`` trace of ``n_steps`` steps."""
+    per = {}
+    for name, us in trace.kernels():
+        t, c = per.get(name, (0.0, 0))
+        per[name] = (t + us / (1e3 * n_steps), c + 1)
+    return {name: (t, c // n_steps) for name, (t, c) in per.items()}
+
+
+def _by_bucket(ms_of):
+    """Device ms a step by ``_BUCKETS`` group, from ms a step by kernel."""
+    groups = {}
+    for name, ms in ms_of.items():
+        groups[_bucket(name)] = groups.get(_bucket(name), 0.0) + ms
+    return groups
+
+
+def _device_breakdown(torch, run_step, step_ms, card, path="coarse"):
+    """Trace two steps; print device time per step by bucket, the top
+    kernels, and the device's idle share against the untraced step."""
+    def two():
         for _ in range(2):
             run_step()
-        torch.cuda.synchronize()
-    kernels = []
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0.0)
-        if t and str(getattr(e, "device_type", "")).endswith("CUDA"):
-            kernels.append((e.key, t / 2e3, e.count // 2))
-    busy = sum(t for _, t, _ in kernels)
-    buckets = {}
-    for name, t, _ in kernels:
-        for bucket, frags in _BUCKETS:
-            if any(f in name for f in frags):
-                break
-        else:
-            bucket = "other"
-        buckets[bucket] = buckets.get(bucket, 0.0) + t
-    top = sorted(kernels, key=lambda k: -k[1])[:12]
+
+    per = _traced_kernels(two, 2)
+    busy = sum(t for t, _ in per.values())
+    top = sorted(per.items(), key=lambda k: -k[1][0])[:12]
     print(json.dumps({
         "path": path, "device_ms_per_step": busy, "step_ms": step_ms,
         "idle_share": (1.0 - busy / step_ms) if busy else None,
-        "buckets_ms": buckets, "n_kernel_names": len(kernels),
-        "top": [{"kernel": n[:90], "ms": t, "calls": c} for n, t, c in top],
+        "buckets_ms": _by_bucket({n: t for n, (t, _) in per.items()}),
+        "n_kernel_names": len(per),
+        "top": [{"kernel": n[:90], "ms": t, "calls": c}
+                for n, (t, c) in top],
         "card": card,
     }))
 
@@ -1051,12 +1092,12 @@ def _serve_library(torch, name, args, path, grid3):
                                 B56.tap_window_serve_cm_plain(*args))
 
 
-def _check_call(torch, name, args, path, grid3=None):
+def _check_call(torch, name, args, path, grid3):
     """Hold one recorded call of the kernel call site ``name`` (a
     function of ``ops/sorted_cm.py`` or ``ops/cuda/fused_shade_cm.py``)
-    against its twin; time and bound it.  With the call's grid shape
-    ``grid3``, a serve (B1, B5) also gets its library time
-    (``F.grid_sample`` at its points)."""
+    against its twin; time and bound it.  A serve (B1, B5) also gets its
+    library time (``F.grid_sample`` at its points on the grid of shape
+    ``grid3``, the call's own)."""
     from fgs_nerf_tpu_torch.ops.cuda import scatter_combine_cm as B2
     from fgs_nerf_tpu_torch.ops.cuda import tap_serve_cm as B56
     from fgs_nerf_tpu_torch.ops.cuda import window_gather_cm as B1
@@ -1079,8 +1120,7 @@ def _check_call(torch, name, args, path, grid3=None):
         out["smem_bytes"] = _b1_smem(c)
         out["segment64_bound_ms"] = _segment64_bound(
             torch, cols, pack, _nbytes(rows, w8) + 4 * c * rows.numel())
-        if grid3 is not None:
-            _library_into(out, _serve_library(torch, name, args, path, grid3))
+        _library_into(out, _serve_library(torch, name, args, path, grid3))
         return out
     if name == "tap_window_serve_cm":
         pack, rows, delta, w8t = args
@@ -1093,8 +1133,7 @@ def _check_call(torch, name, args, path, grid3=None):
         out["smem_bytes"] = 0  # no stage: its pack reads hit L1/L2
         out["segment64_bound_ms"] = _segment64_bound(
             torch, cols, pack, _nbytes(rows, delta, w8t) + 4 * delta.numel())
-        if grid3 is not None:
-            _library_into(out, _serve_library(torch, name, args, path, grid3))
+        _library_into(out, _serve_library(torch, name, args, path, grid3))
         return out
     if name == "dense_accumulate_cm":
         rows, w8, g, n_rows = args
@@ -1860,6 +1899,10 @@ _LAUNCHER_OF = {"window_gather_cm": "window_gather_cm",
                 "tap_window_serve_cm": "tap_window_serve_cm",
                 "tap_dense_accumulate_cm": "tap_dense_accumulate_cm"}
 
+# each stage's block of training settings in a config
+_TRAIN_BLOCK = {"geometry_searching": "geometry_searching",
+                "coarse": "coarse_train", "fine": "fine_train"}
+
 # the kernel call sites each stage's path reaches (sorted engine)
 _STAGE_SITES = {
     "geometry_searching": ("window_gather_cm", "dense_accumulate_cm",
@@ -1887,13 +1930,19 @@ def _write_dtu(run_dir):
 
 def _pipeline_phase(torch, np, card, repo, kernels, config_text,
                     label="pipeline", prepare=None, eval_lpips=True,
-                    validate=True):
-    """Phase 14 (and 15, ``label`` "dtu"): the three-stage pipeline
-    through the CLI, in process, on the data of ``config_text`` (or of
-    ``prepare(run_dir)``, which writes it and returns the CLI's data
-    arguments); ``validate`` False skips the test renders at the end of
-    each stage (``--i_validate 0``), not the final evaluation.  Returns
-    (the per-stage report, the checked kernel calls by site)."""
+                    validate=True, trace_stage=None):
+    """Phase 14 (and 15, ``label`` "dtu", and 22, "capture"): the
+    three-stage pipeline through the CLI, in process, on the data of
+    ``config_text`` (or of ``prepare(run_dir)``, which writes it and
+    returns the CLI's data arguments); ``validate`` False skips the test
+    renders at the end of each stage (``--i_validate 0``), not the final
+    evaluation.  Each stage's kernel calls are recorded at the first step
+    of its last rung and held against their twins after the stage.  With
+    ``trace_stage``, the second and third steps of that stage's last rung
+    run under ``utils/profiling.py:trace_steps`` (a build that ends after
+    one traced step drops its trace; the traced seconds and the trace's
+    writing come off the stage's wall time).  Returns (the per-stage
+    report, the checked kernel calls by site)."""
     import shutil
 
     from fgs_nerf_tpu_torch import run as R
@@ -1907,6 +1956,7 @@ def _pipeline_phase(torch, np, card, repo, kernels, config_text,
     from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
     from fgs_nerf_tpu_torch.train import checkpoint as CK
     from fgs_nerf_tpu_torch.train import trainer as TR
+    from fgs_nerf_tpu_torch.utils import profiling as PF
 
     run_dir = repo / "results" / ("chip_smoke" if label == "pipeline"
                                   else f"chip_smoke_{label}")
@@ -1924,13 +1974,15 @@ def _pipeline_phase(torch, np, card, repo, kernels, config_text,
     real_stage, real_step = TR.train_stage, TR.make_train_step
     real_save = CK.save_checkpoint
     real_rv, real_mesh = E.render_viewpoints, E.extract_mesh_from_params
-    # the kernel calls of the first step of each built step function; a
-    # stage keeps those of its last build (its last rung), which that
-    # step's timing already leaves out.  The copies go to the host, out
-    # of the stage's peak device memory, and their seconds come off the
-    # stage's wall time.
+    # the kernel calls of the first step of each built step function of
+    # the stage's last rung; a stage keeps those of its last build, whose
+    # first step the last rung's timing leaves out.  The copies go to the
+    # host, out of the stage's peak device memory, and their seconds come
+    # off the stage's wall time.
     rec = {"on": False, "calls": [], "s": 0.0}
     checked = {}
+    # the traced steps: the stage running, the open trace, the result
+    tracing = {"stage": None, "cm": None, "trace": None}
 
     def recorder(name, fn):
         def run(*args):
@@ -1957,24 +2009,25 @@ def _pipeline_phase(torch, np, card, repo, kernels, config_text,
         _check(sorted({c[0] for c in calls}) == sorted(_STAGE_SITES[stage]),
                f"{stage}: recorded calls {[c[0] for c in calls]}")
         seen = {}
-        # phase 14's serves also get their library time at the last
-        # rung's grid (B5's x taps serve the transposed grid)
+        # the serves also get their library time at the last rung's grid
+        # (B5's x taps serve the transposed grid)
         cfg_last = stages[stage]["result"].cfg_model
-        grid3 = cfg_last.world_size if label == "pipeline" else None
         while calls:
             name, dev, args = calls.pop(0)
             seen[name] = seen.get(name, 0) + 1
+            t0 = time.perf_counter()
             args = _clone(args, torch, dev)
             path = f"{label} {stage} #{seen[name]}"
             if name == "tap_window_serve_cm":
                 path += (" z/y taps" if args[2].shape[0]
                          == 4 * len(cfg_last.all_displace) else " x taps")
             r = _check_call(torch, name, args, path,
-                            grid3=grid3 if name in _SERVE_ENTRIES else None)
+                            grid3=cfg_last.world_size)
             del args
             torch.cuda.empty_cache()
             checked.setdefault(name, []).append(r)
-            print(json.dumps({"kernel": name, **r, "card": card}))
+            print(json.dumps({"kernel": name, **r, "card": card,
+                              "check_s": time.perf_counter() - t0}))
 
     def timed_stage(cfg_, stage, *args, **kw):
         for k in kernels:
@@ -1983,33 +2036,64 @@ def _pipeline_phase(torch, np, card, repo, kernels, config_text,
         step_log.clear()
         ckpt_s.clear()
         rec["s"] = 0.0
+        tracing["stage"] = stage
+        trn = cfg_[_TRAIN_BLOCK[stage]]
+        tracing["grids"] = set()
+        tracing["rungs"] = 1 + sum(1 for s in trn["pg_scale"]
+                                   if s < trn["N_iters"])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = real_stage(cfg_, stage, *args, **kw)
         torch.cuda.synchronize()
+        if tracing["cm"] is not None:
+            close_trace(False)
         stages[stage] = dict(
             result=res, wall_s=time.perf_counter() - t0 - rec["s"],
             record_s=rec["s"], launches=counts(),
             steps=list(step_log), ckpt_s=list(ckpt_s),
             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        t0 = time.perf_counter()
         check_stage(stage)
+        stages[stage]["check_s"] = time.perf_counter() - t0
         return res
 
+    def close_trace(keep):
+        tracing["cm"].__exit__(None, None, None)
+        tracing["cm"] = None
+        if not keep:
+            tracing["trace"] = None
+        rec["s"] += time.perf_counter() - tracing["t0"]
+
     def timed_make_step(cfg_m, *args, **kw):
+        if tracing["cm"] is not None:
+            close_trace(False)  # the last build ran one step traced: again
         step = real_step(cfg_m, *args, **kw)
         n_run = [0]
+        # only the builds of the stage's last rung are recorded and traced
+        tracing["grids"].add(tuple(cfg_m.world_size))
+        last_rung = len(tracing["grids"]) == tracing["rungs"]
+        traced = (last_rung and tracing["stage"] == trace_stage
+                  and tracing["trace"] is None)
 
         def run(*a):
-            rec["on"] = n_run[0] == 0
+            rec["on"] = last_rung and n_run[0] == 0
             if rec["on"]:
                 rec["calls"].clear()
             n_run[0] += 1
             t0 = time.perf_counter()
+            if traced and n_run[0] == 2:
+                tracing["t0"] = t0
+                tracing["cm"] = PF.trace_steps(str(run_dir / "trace"))
+                tracing["trace"] = tracing["cm"].__enter__()
+            in_trace = tracing["cm"] is not None
             out = step(*a)
             torch.cuda.synchronize()
+            # recorded and traced steps stay out of the last rung's ms
             step_log.append((tuple(cfg_m.world_size),
-                             time.perf_counter() - t0, rec["on"]))
+                             time.perf_counter() - t0, rec["on"] or in_trace))
+            if traced and n_run[0] == 3:
+                close_trace(True)
             rec["on"] = False
             return out
         return run
@@ -2078,7 +2162,8 @@ def _pipeline_phase(torch, np, card, repo, kernels, config_text,
         st = stages[stage]
         res = st["result"]
         last_ws = st["steps"][-1][0]
-        # a build's first step also allocates (and was recorded): left out
+        # a build's first step also allocates (and was recorded), and the
+        # traced steps run under the profiler: left out
         last = ([dt for ws, dt, first in st["steps"]
                  if ws == last_ws and not first]
                 or [dt for ws, dt, _ in st["steps"] if ws == last_ws])
@@ -2088,7 +2173,8 @@ def _pipeline_phase(torch, np, card, repo, kernels, config_text,
         nv = int(cfg[blk]["num_voxels"])
         line = {
             "stage": stage, "wall_s": st["wall_s"],
-            "record_s_left_out": st["record_s"], "steps": len(st["steps"]),
+            "record_s_left_out": st["record_s"],
+            "check_s_left_out": st["check_s"], "steps": len(st["steps"]),
             "ms_per_step_last_rung": ms,
             "rays_per_s_last_rung": int(cfg[trn]["N_rand"]) / (ms / 1e3),
             "steps_timed_at_last_rung": len(last),
@@ -2113,6 +2199,20 @@ def _pipeline_phase(torch, np, card, repo, kernels, config_text,
                    f"{stage}: {fn} was not launched ({st['launches']})")
         _check(not any(fn.startswith("fused_mlp") for fn in st["launches"]),
                f"{stage}: B8/B9 launched on a training path")
+
+    if trace_stage:
+        tr = tracing["trace"]
+        _check(tr is not None, f"{trace_stage}: no steps were traced")
+        groups = _by_bucket({n: t for n, (t, _) in _per_kernel(tr, 2).items()})
+        line = {"stage": trace_stage, "steps": 2,
+                "path": str(Path(tr.path).relative_to(repo)),
+                "kernel_events": tr.kernel_events(),
+                "device_ms_per_step_by_group": groups, "card": card}
+        print(json.dumps({f"{label}_trace": line}))
+        want = {b for b, _, site in _BUCKETS
+                if site in _STAGE_SITES[trace_stage]}
+        _check(line["kernel_events"] > 0 and want <= set(groups),
+               f"the trace misses {sorted(want - set(groups))}: {line}")
 
     t_render, stats = evals["render"]
     t_mesh, (verts, tris) = evals["mesh"]
@@ -2999,8 +3099,7 @@ def _mesh_phases(torch, np, card, repo):
     launches = {}
     for phase, fn in ((19, "_dp_rank"), (20, "_sp_rank")):
         t0 = time.perf_counter()
-        ranks = launch_local(2, target + fn, backend="gloo", device="cuda:0",
-                             timeout=400)
+        ranks = launch_local(2, target + fn, device="cuda:0", timeout=400)
         recs = [{k: (v.item() if v.ndim == 0 else v.tolist())
                  for k, v in r.items()} for r in ranks]
         print(json.dumps({f"phase_{phase}": recs, "wall_s":
@@ -3153,6 +3252,262 @@ def _cli_mesh_phase(torch, np, card, repo, dev):
     rec["nccl_world_1"] = dict(nccl, wall_s=time.perf_counter() - t0)
     print(json.dumps({"phase_21": rec}))
     return rec
+
+
+# ---- phase 22: a capture -> run_colmap -> LLFF three-stage training ------
+
+_CAPTURE_CONFIG = """\
+from fgs_nerf_tpu_torch.config.base import deep_update
+from fgs_nerf_tpu_torch.config.scenes import SMART_CAR
+
+# smart_car (a user's own capture: the _BASE widths, geometry 1.5M voxels,
+# coarse 1.5M, fine 256^3, N_rand 8,192), the dataset type from the CLI,
+# with the depth of every schedule cut as phase 14 cuts it, the fine
+# stage two steps longer (its last rung keeps three untraced, unrecorded
+# steps to time); each stage still climbs all its pg_scale rungs to its
+# full grid
+config = deep_update(SMART_CAR, dict(
+    geometry_searching=dict(N_iters=16, pg_scale=[2, 4, 6, 8, 10, 12, 14],
+                            reset_iter=[2, 4, 6, 8, 10, 12, 14],
+                            decay_step_module={}),
+    coarse_train=dict(N_iters=14, pg_scale=[2, 4, 6, 8, 10, 12],
+                      tv_updates={}, decay_step_module={}),
+    fine_train=dict(N_iters=8, pg_scale=[3], decay_step_module={}),
+))
+"""
+
+CAPTURE_VIEWS = 30
+CAPTURE_RADIUS = 2.6          # camera distance from the sphere's centre
+CAPTURE_FOCAL = 420.0         # pixels at LLFF_HW's 504 wide
+CAPTURE_POINTS = 2000         # sparse points on the sphere
+
+
+def rotmat2qvec(r):
+    """COLMAP's ``(w, x, y, z)`` of a rotation matrix with ``w >= 0``: the
+    inverse of ``data/colmap.py:qvec2rotmat``.  The largest of 4w^2, 4x^2,
+    4y^2, 4z^2 (read off the trace and the diagonal) gives one component,
+    sums and differences of the off-diagonal pairs the other three."""
+    import numpy as np
+
+    r = np.asarray(r, np.float64)
+    t = r[0, 0] + r[1, 1] + r[2, 2]
+    k = int(np.argmax([t, r[0, 0], r[1, 1], r[2, 2]]))
+    if k == 0:
+        w = 0.5 * np.sqrt(1.0 + t)
+        q = [w, (r[2, 1] - r[1, 2]) / (4 * w), (r[0, 2] - r[2, 0]) / (4 * w),
+             (r[1, 0] - r[0, 1]) / (4 * w)]
+    elif k == 1:
+        x = 0.5 * np.sqrt(1.0 + r[0, 0] - r[1, 1] - r[2, 2])
+        q = [(r[2, 1] - r[1, 2]) / (4 * x), x, (r[0, 1] + r[1, 0]) / (4 * x),
+             (r[0, 2] + r[2, 0]) / (4 * x)]
+    elif k == 2:
+        y = 0.5 * np.sqrt(1.0 - r[0, 0] + r[1, 1] - r[2, 2])
+        q = [(r[0, 2] - r[2, 0]) / (4 * y), (r[0, 1] + r[1, 0]) / (4 * y), y,
+             (r[1, 2] + r[2, 1]) / (4 * y)]
+    else:
+        z = 0.5 * np.sqrt(1.0 - r[0, 0] - r[1, 1] + r[2, 2])
+        q = [(r[1, 0] - r[0, 1]) / (4 * z), (r[0, 2] + r[2, 0]) / (4 * z),
+             (r[1, 2] + r[2, 1]) / (4 * z), z]
+    q = np.array(q)
+    return q if q[0] >= 0 else -q
+
+
+def write_colmap_model(sparse, cameras, images, points):
+    """A COLMAP binary sparse model (``cameras.bin``, ``images.bin``,
+    ``points3D.bin``) in the documented format, as
+    ``tests/test_colmap.py:write_fixture`` writes it.  ``cameras``:
+    ``(id, model name, width, height, params)``; ``images``: ``(id, qvec,
+    tvec, camera id, name, xys [n, 2], point3D ids [n])`` (id -1: no
+    point); ``points``: ``(id, xyz, rgb, error, track [(image id,
+    point2D index)])``."""
+    import os
+    import struct
+
+    import numpy as np
+
+    from fgs_nerf_tpu_torch.data.colmap import CAMERA_MODELS
+
+    ids = {name: (i, n) for i, (name, n) in CAMERA_MODELS.items()}
+    os.makedirs(sparse, exist_ok=True)
+    with open(os.path.join(sparse, "cameras.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(cameras)))
+        for cam_id, model, w, h, params in cameras:
+            model_id, n_params = ids[model]
+            _check(len(params) == n_params, f"{model}: {len(params)} params")
+            f.write(struct.pack("<iiQQ", cam_id, model_id, w, h))
+            f.write(struct.pack(f"<{n_params}d", *params))
+    with open(os.path.join(sparse, "images.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(images)))
+        for img_id, qvec, tvec, cam_id, name, xys, pids in images:
+            f.write(struct.pack("<i", img_id))
+            f.write(struct.pack("<4d", *qvec))
+            f.write(struct.pack("<3d", *tvec))
+            f.write(struct.pack("<i", cam_id))
+            f.write(name.encode() + b"\x00")
+            f.write(struct.pack("<Q", len(pids)))
+            for (x, y), pid in zip(np.asarray(xys, np.float64), pids):
+                # the point3D id as a float64: the layout the readers
+                # (``data/colmap.py:read_images_bin``) and the fixture
+                # read; COLMAP itself writes a uint64 there (ROADMAP §C)
+                f.write(struct.pack("<3d", x, y, float(pid)))
+    with open(os.path.join(sparse, "points3D.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(points)))
+        for pid, xyz, rgb, err, track in points:
+            f.write(struct.pack("<Q", pid))
+            f.write(struct.pack("<3d", *xyz))
+            f.write(struct.pack("<3B", *rgb))
+            f.write(struct.pack("<d", err))
+            f.write(struct.pack("<Q", len(track)))
+            for img_id, idx in track:
+                f.write(struct.pack("<ii", img_id, idx))
+
+
+def capture_centres(n, radius=CAPTURE_RADIUS):
+    """Camera centres of an inward capture around the origin (+z up): an
+    arc of 240 degrees of azimuth at elevations 15 and 35 degrees in
+    turn, as a hand-held walk around an object gives.  Not a closed
+    ring: there the LLFF loader's mean back and up vectors are both
+    vertical, and its average pose's x axis (their cross product) is
+    float32 rounding noise."""
+    import numpy as np
+
+    az = np.radians(np.linspace(-120.0, 120.0, n))
+    el = np.radians(np.where(np.arange(n) % 2 == 0, 15.0, 35.0))
+    return radius * np.stack([np.cos(el) * np.sin(az),
+                              -np.cos(el) * np.cos(az), np.sin(el)], -1)
+
+
+def write_capture(root, n_views=CAPTURE_VIEWS, hw=LLFF_HW,
+                  n_points=CAPTURE_POINTS, seed=0):
+    """A user's capture as ``run_colmap`` takes it once COLMAP has run:
+    ``images/%03d.png`` of ``data/synthetic.py:shade_sphere`` (the glossy
+    sphere of radius 0.5, white background) seen by ``n_views`` OpenCV
+    cameras on :func:`capture_centres`, and ``sparse/0``, a binary model
+    with one ``PINHOLE`` camera, each view's ``R_w2c`` / ``t_w2c`` and
+    ``n_points`` points on the sphere (from ``seed``), each listed by the
+    views that see it.  Views are written one after another, their rays
+    three multiply-adds each (``view_dirs``), so two writes give the
+    same bytes.  Returns the centres and OpenCV ``c2w`` rotations."""
+    import os
+
+    import numpy as np
+
+    from fgs_nerf_tpu_torch.data.rays import get_rays_of_a_view
+    from fgs_nerf_tpu_torch.data.synthetic import shade_sphere
+    from fgs_nerf_tpu_torch.eval.image_io import write_png
+
+    h, w = hw
+    f = CAPTURE_FOCAL * w / LLFF_HW[1]
+    kk = np.array([[f, 0.0, 0.5 * w], [0.0, f, 0.5 * h], [0.0, 0.0, 1.0]])
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    _, d_cam, _ = get_rays_of_a_view(h, w, kk.astype(np.float32),
+                                     np.eye(4, dtype=np.float32)[:3],
+                                     ndc=False, inverse_y=True, flip_x=False,
+                                     flip_y=False)
+    pts = np.random.default_rng(seed).normal(size=(n_points, 3))
+    pts = 0.5 * pts / np.linalg.norm(pts, axis=-1, keepdims=True)
+    centres = capture_centres(n_views)
+    rots, images, tracks = [], [], [[] for _ in range(n_points)]
+    for i, c in enumerate(centres):
+        c2w = _look_at(c)
+        rots.append(c2w)
+        rays_d = view_dirs(d_cam, c2w)
+        rays_o = np.broadcast_to(c.astype(np.float32), rays_d.shape)
+        img, _ = shade_sphere(rays_o, rays_d)
+        name = f"{i:03d}.png"
+        write_png(os.path.join(root, "images", name),
+                  np.round(img.reshape(h, w, 3) * 255).astype(np.uint8))
+        r = c2w.T                                # world -> camera
+        t = -r @ c
+        cam = (pts[:, :1] * r[:, 0] + pts[:, 1:2] * r[:, 1]
+               + pts[:, 2:3] * r[:, 2] + t)
+        uv = cam[:, :2] / cam[:, 2:] * f + [0.5 * w, 0.5 * h]
+        seen = np.flatnonzero((np.sum(pts * (c - pts), -1) > 0)
+                              & (cam[:, 2] > 0) & (uv[:, 0] >= 0)
+                              & (uv[:, 0] < w) & (uv[:, 1] >= 0)
+                              & (uv[:, 1] < h))
+        for j, p in enumerate(seen):
+            tracks[p].append((i + 1, j))
+        images.append((i + 1, rotmat2qvec(r), t, 1, name, uv[seen], seen))
+    points = [(p, pts[p], (200, 200, 200), 0.5, tracks[p])
+              for p in range(n_points) if tracks[p]]
+    write_colmap_model(os.path.join(root, "sparse", "0"),
+                       [(1, "PINHOLE", w, h, (f, f, 0.5 * w, 0.5 * h))],
+                       images, points)
+    return centres, np.stack(rots)
+
+
+def fit_similarity(src, dst):
+    """The similarity ``x -> s R x + t`` that best maps the points ``src``
+    onto ``dst`` in least squares (Umeyama): returns (s, R, t)."""
+    import numpy as np
+
+    src, dst = np.asarray(src, np.float64), np.asarray(dst, np.float64)
+    ms, md = src.mean(0), dst.mean(0)
+    a, b = src - ms, dst - md
+    u, sv, vt = np.linalg.svd(b.T @ a / len(src))
+    e = np.eye(3)
+    e[2, 2] = np.sign(np.linalg.det(u @ vt))
+    rot = u @ e @ vt
+    s = float(np.sum(sv * np.diag(e)) / np.mean(np.sum(a * a, -1)))
+    return s, rot, md - s * rot @ ms
+
+
+def check_capture_conversion(root, centres, rots):
+    """What ``run_colmap`` left in ``root`` against the written capture:
+    one 17-column ``poses_bounds`` row and a ``world_mat_i`` /
+    ``scale_mat_i`` pair a view, and the LLFF loader's cameras (as
+    ``data/dataset.py`` loads them: recentred, ``bd_factor`` 1) one
+    similarity away from the written ones: centres within 1e-4 of the
+    capture's radius, camera axes ([right up back]) within 1e-4.  Returns
+    the readings."""
+    import os
+
+    import numpy as np
+
+    from fgs_nerf_tpu_torch.data.llff import load_llff_data
+
+    n = len(centres)
+    pb = np.load(os.path.join(root, "poses_bounds.npy"))
+    _check(pb.shape == (n, 17) and np.isfinite(pb).all(),
+           f"poses_bounds {pb.shape}")
+    cs = np.load(os.path.join(root, "cameras_sphere.npz"))
+    want = {f"{k}_{i}" for i in range(n) for k in ("world_mat", "scale_mat")}
+    _check(set(cs.files) == want, f"cameras_sphere keys {sorted(cs.files)}")
+    _, poses, bds, _, _ = load_llff_data(root, 1, recenter=True, bd_factor=1)
+    s, rot, t = fit_similarity(poses[:, :3, 3], centres)
+    got = s * poses[:, :3, 3] @ rot.T + t
+    centre_err = float(np.abs(got - centres).max() / CAPTURE_RADIUS)
+    gl = rots * np.array([1.0, -1.0, -1.0])      # OpenCV -> [right up back]
+    axis_err = float(np.abs(rot @ poses[:, :3, :3] - gl).max())
+    line = dict(views=n, near_far=[float(bds.min()), float(bds.max())],
+                similarity_scale=s, centre_err_rel=centre_err,
+                axis_err=axis_err,
+                scale_mat_0=cs["scale_mat_0"].tolist())
+    _check(centre_err <= 1e-4 and axis_err <= 1e-4,
+           f"the LLFF cameras are not the capture's: {line}")
+    return line
+
+
+def _write_capture(run_dir):
+    """Phase 22's data: a capture written by :func:`write_capture`,
+    converted by the port's ``run_colmap --skip_masks`` (its ``sparse/0``
+    taken as a reconstruction COLMAP left, no ``colmap`` run) and checked
+    (:func:`check_capture_conversion`) -> the CLI's data arguments."""
+    from fgs_nerf_tpu_torch import run_colmap as RC
+
+    root = run_dir / "capture"
+    t0 = time.perf_counter()
+    centres, rots = write_capture(str(root))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rc = RC.main(["--custom_dataset_path", str(root), "--skip_masks"])
+    convert_s = time.perf_counter() - t0
+    _check(rc == 0, f"run_colmap exited with {rc}")
+    line = check_capture_conversion(str(root), centres, rots)
+    print(json.dumps({"capture": {"hw": list(LLFF_HW), "write_s": write_s,
+                                  "run_colmap_s": convert_s, **line}}))
+    return ["--dataset_type", "llff", "--dataset_path", str(root)]
 
 
 def _nccl_world_1():
@@ -3407,6 +3762,15 @@ def main():
     _cli_mesh_phase(torch, np, card, repo, dev)
     print(json.dumps({"phases_19_21_s": time.perf_counter() - t_new}))
 
+    # ---- 22. a capture -> run_colmap -> LLFF three stages -----------------
+    t_new = time.perf_counter()
+    torch.cuda.empty_cache()
+    capture, capture_calls = _pipeline_phase(
+        torch, np, card, repo, kernels, _CAPTURE_CONFIG, label="capture",
+        prepare=_write_capture, eval_lpips=False, validate=False,
+        trace_stage="fine")
+    print(json.dumps({"phase_22_s": time.perf_counter() - t_new}))
+
     rows_out = []
     for name, kern, replaces, main_call in (
         ("window_gather_cm", B1.KERNEL,
@@ -3424,7 +3788,7 @@ def main():
     ):
         calls = ([results[name]] if name in results else []) + (
             fine_calls.get(name, []) + pipeline_calls.get(name, [])
-            + dtu_calls.get(name, []))
+            + dtu_calls.get(name, []) + capture_calls.get(name, []))
         main = next(c for c in calls if c["path"] == main_call)
         by_path = {"coarse": coarse_launches.get(name, 0),
                    "fine": fine_launches.get(name, 0),
@@ -3436,7 +3800,9 @@ def main():
                    "tensorf_coarse": tensorf_launches.get(
                        _LAUNCHER_OF[name], 0),
                    **{p: c.get(_LAUNCHER_OF[name], 0)
-                      for p, c in mesh_launches.items()}}
+                      for p, c in mesh_launches.items()},
+                   **{f"capture_{st}": r["launches"].get(
+                       _LAUNCHER_OF[name], 0) for st, r in capture.items()}}
         rows_out.append({
             "name": name, "route": "cuda", "source": kern.source_rel,
             "replaces": replaces,
@@ -3511,7 +3877,8 @@ def main():
             "launches_per_step": {p: 0 for p in (
                 "coarse", "fine", "lattice_coarse", "lattice_fine",
                 *(f"pipeline_{st}" for st in pipeline),
-                *(f"dtu_{st}" for st in dtu))},
+                *(f"dtu_{st}" for st in dtu),
+                *(f"capture_{st}" for st in capture))},
             "calls": calls,
         })
     print(f"total: {time.perf_counter() - t0:.1f} s")

@@ -7,9 +7,12 @@ and bound with ``ctypes`` (``ops/cuda/``).  A kernel wrapper launches its
 kernel for CUDA tensors and runs its plain PyTorch twin for CPU tensors;
 nothing else selects between the two.
 
-Ported so far: the three-stage training pipeline on both render engines
+It holds the three-stage training pipeline on both render engines
 (``train/pipeline.py``, ``train/trainer.py``), checkpoints in the JAX
-package's format, evaluation and meshing (``eval/``), and the command
-line (``python -m fgs_nerf_tpu_torch.run``).  Importing the package
-imports neither ``jax`` nor any module of ``fgs_nerf_tpu``.
+package's format, evaluation and meshing (``eval/``), every loader,
+dp / sp parallelism (``parallel/``), the capture preprocessing
+(``python -m fgs_nerf_tpu_torch.run_colmap``), the profiling helpers
+(``utils/``) and the command line (``python -m fgs_nerf_tpu_torch.run``).
+Importing the package imports neither ``jax`` nor any module of
+``fgs_nerf_tpu``.
 """

@@ -6,7 +6,9 @@ inverse_y / flip_x / flip_y conventions, unit view directions, the NDC
 warp, the per-view and flattened training rays, the 'in_maskcache'
 pixel filter (its fixed-N samples run on the mask cache's device) and
 the epoch-style batch index generator, which draws from numpy's
-``default_rng(seed)`` exactly as the JAX package does.
+``default_rng(seed)`` exactly as the JAX package does; and the pose
+helpers of ``data/rays.py:205-255`` (quaternion ``slerp``,
+``interp_pose``, ``get_random_poses``), numpy and scipy on the host.
 """
 from __future__ import annotations
 
@@ -185,3 +187,61 @@ def batch_index_generator(n: int, bs: int, seed: int = 777) -> Iterator[np.ndarr
             idx, top = rng.permutation(n), 0
         yield idx[top:top + bs]
         top += bs
+
+
+# ---------------------------------------------------------------------------
+# Pose interpolation / random-pose synthesis (`model/nerf_ray.py:103-175`)
+# ---------------------------------------------------------------------------
+
+
+def slerp(p0: np.ndarray, p1: np.ndarray, t: float) -> np.ndarray:
+    """Quaternion spherical interpolation (`model/nerf_ray.py:103-107`)."""
+    omega = np.arccos(
+        np.clip(np.dot(p0 / np.linalg.norm(p0), p1 / np.linalg.norm(p1)), -1, 1)
+    )
+    so = np.sin(omega)
+    if so < 1e-8:
+        return (1.0 - t) * p0 + t * p1
+    return np.sin((1.0 - t) * omega) / so * p0 + np.sin(t * omega) / so * p1
+
+
+def interp_pose(pose1: np.ndarray, pose2: np.ndarray, s: float) -> np.ndarray:
+    """Pose interpolation as c2w matrices (`model/nerf_ray.py:109-129`)."""
+    from scipy.spatial.transform import Rotation
+
+    pose1, pose2 = np.asarray(pose1)[:3], np.asarray(pose2)[:3]
+    c = (1 - s) * pose1[:, -1] + s * pose2[:, -1]
+    q = slerp(
+        Rotation.from_matrix(pose1[:, :3]).as_quat(),
+        Rotation.from_matrix(pose2[:, :3]).as_quat(), s,
+    )
+    r = Rotation.from_quat(q).as_matrix()
+    return np.concatenate(
+        [np.concatenate([r, c[:, None]], axis=-1), [[0, 0, 0, 1]]], axis=0
+    ).astype(np.float32)
+
+
+def get_random_poses(
+    train_poses: np.ndarray, generate_poses: str = "loaded", n_poses: int = 20,
+    seed: int = 0,
+) -> np.ndarray:
+    """Random pose synthesis (`model/nerf_ray.py:134-152`)."""
+    rng_l = np.random.default_rng(seed)
+    if generate_poses == "loaded":
+        n_poses = min(n_poses, len(train_poses))
+        return train_poses[
+            rng_l.choice(len(train_poses), size=n_poses, replace=False)
+        ]
+    if generate_poses == "interpolate_train_all":
+        assert len(train_poses) >= 3
+        poses = np.zeros((n_poses, 4, 4), np.float32)
+        for i in range(n_poses):
+            p1, p2, p3 = train_poses[
+                rng_l.choice(len(train_poses), size=3, replace=False)
+            ]
+            s12, s3 = rng_l.uniform(0, 1, size=2)
+            poses[i] = interp_pose(
+                interp_pose(p1[:3, :4], p2[:3, :4], s12), p3[:3, :4], s3
+            )
+        return poses
+    raise NotImplementedError(generate_poses)

@@ -131,10 +131,9 @@ def dryrun_multichip(n_devices: int, device: str = "cuda",
     unless both are finite and every rank agrees."""
     from fgs_nerf_tpu_torch.parallel.launch import launch_local
 
-    backend = "nccl" if device == "cuda" else "gloo"
     res = launch_local(n_devices,
                        "fgs_nerf_tpu_torch.parallel.dryrun:_dryrun_rank",
-                       backend=backend, device=device, timeout=timeout)
+                       device=device, timeout=timeout)
     losses = [(float(r["loss_dp"]), float(r["loss"])) for r in res]
     if any(v != losses[0] for v in losses):
         raise RuntimeError(f"ranks disagree on the dry run's losses: {losses}")

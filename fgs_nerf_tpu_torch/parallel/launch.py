@@ -6,11 +6,13 @@ process group (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``).  Each rank calls
 ``fn(device=device, **kwargs)`` after joining the group and returns a flat dict of
 numpy arrays or numbers, which comes back to the caller as one dict per
-rank.  On the CPU each rank gets one thread.  A rank that exits nonzero,
-or a run past ``timeout`` seconds, kills every rank and raises.
+rank.  The ranks run on the cards (``device="cuda"``: a card a rank, NCCL)
+unless the caller names another device (``"cuda:0"``: every rank on the
+first card, gloo; ``"cpu"``: gloo, one thread a rank).  A rank that exits
+nonzero, or a run past ``timeout`` seconds, kills every rank and raises.
 
     results = launch_local(2, "fgs_nerf_tpu_torch.parallel.dryrun:_dryrun_rank",
-                           backend="gloo", device="cpu", timeout=120)
+                           timeout=120)
 """
 from __future__ import annotations
 
@@ -49,10 +51,11 @@ def _load_target(target: str):
     return getattr(mod, name)
 
 
-def launch_local(n: int, target: str, *, backend: str = "gloo",
-                 device: str = "cpu", timeout: float = 120.0,
+def launch_local(n: int, target: str, *, device: str = "cuda",
+                 timeout: float = 120.0,
                  kwargs: Optional[Dict[str, Any]] = None) -> List[Dict[str, Any]]:
     """Run ``target`` on ``n`` local ranks; returns each rank's result."""
+    backend = "nccl" if device == "cuda" else "gloo"
     out_dir = Path(tempfile.mkdtemp(prefix="fgs_ranks_"))
     base = dict(os.environ)
     base.update(

@@ -84,8 +84,9 @@ def maybe_distributed_init(backend: Optional[str] = None, device=None,
     Returns False (and does nothing) when none of ``RANK``, ``WORLD_SIZE``,
     ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT`` is set: one process.
     Raises ``ValueError`` when only some are set, or when NCCL would put
-    two ranks on one device (it cannot), before any rendezvous.  The
-    ``timeout_s`` bounds every collective, so a lost rank fails the
+    two ranks on one device (it cannot), before any rendezvous.  With no
+    ``device`` the rank's card (:func:`rank_device`) decides the backend.
+    The ``timeout_s`` bounds every collective, so a lost rank fails the
     others instead of hanging them."""
     if dist.is_initialized():
         return True
@@ -97,13 +98,13 @@ def maybe_distributed_init(backend: Optional[str] = None, device=None,
         raise ValueError(
             f"{', '.join(present)} set but {', '.join(missing)} missing: "
             "a distributed run needs all of " + ", ".join(ENV_KEYS))
-    dev = torch.device(device) if device is not None else None
-    backend = backend or default_backend(dev or "cpu")
+    dev = torch.device(device) if device is not None else rank_device()
+    backend = backend or default_backend(dev)
     if backend == "nccl":
         local = int(os.environ["LOCAL_RANK"])
         n_local = int(os.environ.get("LOCAL_WORLD_SIZE",
                                      os.environ["WORLD_SIZE"]))
-        if dev is None or dev.type != "cuda":
+        if dev.type != "cuda":
             raise ValueError("the nccl backend needs a CUDA device per rank")
         idx = local if dev.index is None else dev.index
         if n_local > 1 and idx != local:
@@ -139,8 +140,9 @@ def build_mesh(spec: str, device=None) -> Optional[Mesh]:
     ``'none'`` / ``'1'`` / ``''`` -> None, in one process only;
     ``'auto'`` -> None in one process, else dp over every rank;
     ``'dp=N[,sp=M]'`` -> that grid, whose size must equal the world size
-    (``ValueError`` otherwise).  Every rank must call it, in the same
-    order: it makes the groups."""
+    (``ValueError`` otherwise), on ``device`` or else the rank's card
+    (:func:`rank_device`).  Every rank must call it, in the same order: it
+    makes the groups."""
     n = world_size()
     if spec in ("none", "1", ""):
         if n > 1:
@@ -168,7 +170,7 @@ def build_mesh(spec: str, device=None) -> Optional[Mesh]:
             g = dist.new_group([j * sp + s for s in range(sp)])
             if j == rank // sp:
                 sp_group = g
-    dev = torch.device(device) if device is not None else torch.device("cpu")
+    dev = torch.device(device) if device is not None else rank_device()
     return Mesh(dp=dp, sp=sp, dp_index=rank // sp, sp_index=rank % sp,
                 dp_group=dp_group, sp_group=sp_group, device=dev)
 

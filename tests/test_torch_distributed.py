@@ -18,7 +18,8 @@ from fgs_nerf_tpu_torch.parallel.launch import launch_local
 def ranks(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("dist") / "shard_ckpt.npz")
     return path, launch_local(2, f"{W.__file__}:distributed_rank",
-                              kwargs=dict(ckpt_path=path), timeout=120)
+                              device="cpu", kwargs=dict(ckpt_path=path),
+                              timeout=120)
 
 
 def test_two_process_distributed_shard_batch(ranks):

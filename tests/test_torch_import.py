@@ -77,6 +77,10 @@ def test_port_imports_no_jax():
                  "fgs_nerf_tpu_torch.parallel.spatial_train",
                  "fgs_nerf_tpu_torch.parallel.launch",
                  "fgs_nerf_tpu_torch.parallel.dryrun",
+                 "fgs_nerf_tpu_torch.data.colmap",
+                 "fgs_nerf_tpu_torch.data.preprocess",
+                 "fgs_nerf_tpu_torch.utils.profiling",
+                 "fgs_nerf_tpu_torch.run_colmap",
                  "fgs_nerf_tpu_torch.run"):
         assert name in res["modules"]
 
@@ -117,8 +121,36 @@ def test_mesh_spec_must_match_the_world(monkeypatch):
     with pytest.raises(ValueError, match="needs 4 ranks"):
         build_mesh("dp=2,sp=2")
     assert build_mesh("none") is None and build_mesh("auto") is None
-    m = build_mesh("dp=1")
+    m = build_mesh("dp=1", device="cpu")
     assert (m.dp, m.sp, m.rank, m.dp_group) == (1, 1, 0, None)
+
+
+def test_parallel_entry_points_default_to_the_card(monkeypatch):
+    """With no device, ``build_mesh`` and ``maybe_distributed_init`` take
+    the rank's card (``rank_device``), which a machine with no card does
+    not have; ``launch_local`` starts its ranks on the cards (NCCL)."""
+    import inspect
+
+    import torch
+
+    from fgs_nerf_tpu_torch.parallel import mesh as M
+    from fgs_nerf_tpu_torch.parallel.launch import launch_local
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    assert M.build_mesh("none") is None and M.build_mesh("auto") is None
+    with pytest.raises(RuntimeError, match="has no card of its own"):
+        M.build_mesh("dp=1")
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT="1")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(RuntimeError, match="has no card of its own"):
+        M.maybe_distributed_init()
+    params = inspect.signature(launch_local).parameters
+    assert params["device"].default == "cuda"
 
 
 def test_nccl_refuses_two_ranks_on_one_device(monkeypatch):
@@ -141,22 +173,30 @@ def test_nccl_refuses_two_ranks_on_one_device(monkeypatch):
 
 
 def test_chip_smoke_imports_no_jax(tmp_path):
-    """``chip_smoke.py`` and the port modules its DTU scan writers use
-    leave JAX and the JAX package out of ``sys.modules``."""
+    """``chip_smoke.py`` and the port modules its DTU scan writers and its
+    capture path (phase 22: the capture writer, ``run_colmap``, the LLFF
+    check) use leave JAX, the JAX package, ``imageio`` and ``cv2`` out of
+    ``sys.modules``."""
+    cap = str(tmp_path / "capture")
     probe = (
         "import json, sys\n"
         "sys.path.insert(0, '.')\n"
         "import chip_smoke as CS\n"
+        "from fgs_nerf_tpu_torch import run_colmap as RC\n"
         f"sm = CS.write_dtu_scan({str(tmp_path / 'scan')!r}, 2, hw=(12, 16))\n"
         f"CS.write_dtu_eval_data({str(tmp_path)!r}, 1, sm, n_points=10)\n"
+        f"c, r = CS.write_capture({cap!r}, 4, hw=(12, 16), n_points=50)\n"
+        f"assert RC.main(['--custom_dataset_path', {cap!r}]) == 0\n"
+        f"CS.check_capture_conversion({cap!r}, c, r)\n"
         "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0]\n"
-        "      in ('jax', 'jaxlib', 'fgs_nerf_tpu'))))\n")
+        "      in ('jax', 'jaxlib', 'fgs_nerf_tpu', 'imageio', 'cv2'))))\n")
     out = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
                          capture_output=True, text=True, timeout=120,
                          check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     assert (tmp_path / "scan" / "image" / "000001.png").is_file()
     assert (tmp_path / "ObsMask" / "Plane1.mat").is_file()
+    assert (tmp_path / "capture" / "poses_bounds.npy").is_file()
 
 
 def test_entry_points_default_to_the_card():

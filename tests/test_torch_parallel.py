@@ -71,7 +71,7 @@ def case(tmp_path_factory):
     }
     for name, (_, params) in cases.items():
         W.save_tree(d / f"{name}.npz", jax.device_get(params))
-    ranks = launch_local(4, f"{W.__file__}:parallel_rank",
+    ranks = launch_local(4, f"{W.__file__}:parallel_rank", device="cpu",
                          kwargs=dict(case_dir=str(d)), timeout=120)
     return cases, ranks
 
@@ -238,7 +238,7 @@ def cli_runs(tmp_path_factory):
             halves = W.training_rank("cpu", str(tmp_path / "halves"), init)
     finally:
         torch.set_num_threads(threads)
-    ranks = launch_local(2, f"{W.__file__}:training_rank",
+    ranks = launch_local(2, f"{W.__file__}:training_rank", device="cpu",
                          kwargs=dict(out_dir=str(tmp_path / "dp2"),
                                      params_path=init), timeout=120)
     return r1, single, halves, ranks

@@ -25,7 +25,8 @@ SHARDS = (2, 4)
 
 @pytest.fixture(scope="module")
 def ranks():
-    return launch_local(4, f"{W.__file__}:spatial_rank", timeout=120)
+    return launch_local(4, f"{W.__file__}:spatial_rank", device="cpu",
+                        timeout=120)
 
 
 @pytest.fixture(scope="module")
