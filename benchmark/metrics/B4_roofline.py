@@ -1,0 +1,5 @@
+"""B4's share of its roofline, in percent (kernels grouped as
+"shade B4"), over the traced window."""
+from benchmark.readers import roofline
+
+read = roofline("shade B4")

@@ -1,0 +1,5 @@
+"""Device milliseconds a step in the kernels the frozen ``record.BUCKETS``
+group as "elementwise", over the traced window."""
+from benchmark.readers import device_ms
+
+read = device_ms("elementwise")
