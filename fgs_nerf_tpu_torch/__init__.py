@@ -11,8 +11,9 @@ It holds the three-stage training pipeline on both render engines
 (``train/pipeline.py``, ``train/trainer.py``), checkpoints in the JAX
 package's format, evaluation and meshing (``eval/``), every loader,
 dp / sp parallelism (``parallel/``), the capture preprocessing
-(``python -m fgs_nerf_tpu_torch.run_colmap``), the profiling helpers
-(``utils/``) and the command line (``python -m fgs_nerf_tpu_torch.run``).
+(``python -m fgs_nerf_tpu_torch.run_colmap``), the span recorder and
+trace of ``utils/profiling.py`` (off unless turned on) and the command
+line (``python -m fgs_nerf_tpu_torch.run``).
 Importing the package imports neither ``jax`` nor any module of
 ``fgs_nerf_tpu``.
 """

@@ -8,7 +8,9 @@ PSNR with foreground / background splits and SSIM, and, with a
 ``savedir``, the image, error, normal, depth and background dumps as
 PNG files (``eval/image_io.py``); ``eval_lpips=True`` adds LPIPS(alex)
 (and LPIPS(vgg) where available: never in the port) computed on the
-parameters' device (``eval/metrics.py:rgb_lpips``).
+parameters' device (``eval/metrics.py:rgb_lpips``).  Spans
+(``utils/profiling.py``): ``render_view`` a view, inside it ``rays``,
+``to_host`` a chunk, ``score`` and ``save``.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from fgs_nerf_tpu_torch.data.rays import get_rays_of_a_view
 from fgs_nerf_tpu_torch.eval import metrics as metrics_lib
 from fgs_nerf_tpu_torch.eval.image_io import write_png
 from fgs_nerf_tpu_torch.models import sdf_voxel as M
+from fgs_nerf_tpu_torch.utils.profiling import span
 
 _OUT_KEYS = ("rgb_marched", "depth", "disp", "alphainv_cum", "normal_marched",
              "overflow")
@@ -51,16 +54,17 @@ def render_image(render_chunk, params, buffers, h, w, k, c2w, conv: Dict,
     """One view through ``render_chunk`` -> numpy [H, W(, C)] outputs
     and the overflowed-ray fraction (`eval/render.py:55-87`).  Rays go to
     the device of ``params['sdf']``."""
-    rays_o, rays_d, viewdirs = get_rays_of_a_view(h, w, k, c2w, **conv)
-    o = rays_o.reshape(-1, 3)
-    d = rays_d.reshape(-1, 3)
-    v = viewdirs.reshape(-1, 3)
-    n = len(o)
-    pad = (-n) % chunk
-    if pad:
-        o = np.concatenate([o, np.repeat(o[-1:], pad, 0)])
-        d = np.concatenate([d, np.repeat(d[-1:], pad, 0)])
-        v = np.concatenate([v, np.repeat(v[-1:], pad, 0)])
+    with span("rays"):
+        rays_o, rays_d, viewdirs = get_rays_of_a_view(h, w, k, c2w, **conv)
+        o = rays_o.reshape(-1, 3)
+        d = rays_d.reshape(-1, 3)
+        v = viewdirs.reshape(-1, 3)
+        n = len(o)
+        pad = (-n) % chunk
+        if pad:
+            o = np.concatenate([o, np.repeat(o[-1:], pad, 0)])
+            d = np.concatenate([d, np.repeat(d[-1:], pad, 0)])
+            v = np.concatenate([v, np.repeat(v[-1:], pad, 0)])
     dev = params["sdf"].device
     sv = torch.as_tensor(s_val, dtype=torch.float32, device=dev)
     outs = []
@@ -69,7 +73,9 @@ def render_image(render_chunk, params, buffers, h, w, k, c2w, conv: Dict,
         res = render_chunk(params, buffers,
                            *(torch.as_tensor(a[sl], device=dev)
                              for a in (o, d, v)), sv)
-        outs.append({key: val.cpu().numpy() for key, val in res.items()})
+        with span("to_host"):
+            outs.append({key: val.cpu().numpy()
+                         for key, val in res.items()})
     cat = {key: np.concatenate([ot[key] for ot in outs])[:n] for key in outs[0]}
     result = {}
     for key, val in cat.items():
@@ -129,38 +135,44 @@ def render_viewpoints(render_chunk, params, buffers, poses, hw, ks, conv: Dict,
     if savedir:
         os.makedirs(savedir, exist_ok=True)
     for i, c2w in enumerate(poses):
-        h, w = int(hw[i][0]), int(hw[i][1])
-        res = render_image(render_chunk, params, buffers, h, w, ks[i], c2w,
-                           conv, s_val)
-        rgb = res["rgb_marched"]
-        stats["rgbs"].append(rgb)
-        ovf = res.get("overflow_frac", 0.0)
-        if ovf > 0:
-            log.warning(
-                f"view {i}: {ovf:.2%} of rays overflowed the shading/"
-                f"sample capacity (shade_k/sample_k) — rendered images "
-                f"are biased; raise the capacities (or set -1 for exact)")
-        gt = None
-        if gt_imgs is not None:
-            gt = np.asarray(gt_imgs[i])
-            mask = None if masks is None else np.asarray(masks[i])
-            p, fore, back = metrics_lib.psnr_splits(rgb, gt, mask)
-            stats["psnr"].append(p)
-            stats["fore_psnr"].append(fore)
-            stats["bg_psnr"].append(back)
-            if eval_ssim:
-                stats["ssim"].append(metrics_lib.rgb_ssim(rgb, gt, max_val=1))
-            if eval_lpips:
-                dev = params["sdf"].device
-                la = metrics_lib.rgb_lpips(gt, rgb, "alex", device=dev)
-                lv = metrics_lib.rgb_lpips(gt, rgb, "vgg", device=dev)
-                if la is not None:
-                    stats["lpips_alex"].append(la)
-                if lv is not None:
-                    stats["lpips_vgg"].append(lv)
-            log.info(f"view {i}: psnr {p:.2f} fore {fore:.2f} bg {back:.2f}")
-        if savedir:
-            _save_view(savedir, f"{step}_" if step else "", i, res, rgb, gt)
+        with span("render_view"):
+            h, w = int(hw[i][0]), int(hw[i][1])
+            res = render_image(render_chunk, params, buffers, h, w, ks[i],
+                               c2w, conv, s_val)
+            rgb = res["rgb_marched"]
+            stats["rgbs"].append(rgb)
+            ovf = res.get("overflow_frac", 0.0)
+            if ovf > 0:
+                log.warning(
+                    f"view {i}: {ovf:.2%} of rays overflowed the shading/"
+                    f"sample capacity (shade_k/sample_k) — rendered images "
+                    f"are biased; raise the capacities (or set -1 for exact)")
+            gt = None
+            if gt_imgs is not None:
+                gt = np.asarray(gt_imgs[i])
+                mask = None if masks is None else np.asarray(masks[i])
+                with span("score"):
+                    p, fore, back = metrics_lib.psnr_splits(rgb, gt, mask)
+                    stats["psnr"].append(p)
+                    stats["fore_psnr"].append(fore)
+                    stats["bg_psnr"].append(back)
+                    if eval_ssim:
+                        stats["ssim"].append(
+                            metrics_lib.rgb_ssim(rgb, gt, max_val=1))
+                    if eval_lpips:
+                        dev = params["sdf"].device
+                        la = metrics_lib.rgb_lpips(gt, rgb, "alex", device=dev)
+                        lv = metrics_lib.rgb_lpips(gt, rgb, "vgg", device=dev)
+                        if la is not None:
+                            stats["lpips_alex"].append(la)
+                        if lv is not None:
+                            stats["lpips_vgg"].append(lv)
+                log.info(f"view {i}: psnr {p:.2f} fore {fore:.2f} "
+                         f"bg {back:.2f}")
+            if savedir:
+                with span("save"):
+                    _save_view(savedir, f"{step}_" if step else "", i, res,
+                               rgb, gt)
     if stats["psnr"]:
         msg = (f"Testing psnr {np.mean(stats['psnr']):.2f} (avg) | "
                f"foreground {np.mean(stats['fore_psnr']):.2f} | "

@@ -61,6 +61,7 @@ from fgs_nerf_tpu_torch.parallel.spatial import (
     sharded_sdf_gradient, sharded_stencil, sp_mesh,
 )
 from fgs_nerf_tpu_torch.parallel.spatial_train import make_spatial_gather
+from fgs_nerf_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -578,17 +579,22 @@ def forward(params, buffers, cfg: SDFModelConfig, box: SceneBox, rays_o,
     sorted_ok = cfg.engine == "sorted" and sp_mesh(mesh) is None
     if cfg.is_fine:
         if sorted_ok and cfg.all_displace and 1.0 in cfg.all_displace:
-            return forward_fine_sorted(params, buffers, cfg, box, rays_o,
-                                       rays_d, viewdirs, s_val, near, bg)
-        fwd = forward_fine
+            fwd = forward_fine_sorted
+        else:
+            fwd = forward_fine
     elif sorted_ok:
-        return forward_coarse_sorted(params, buffers, cfg, box, rays_o,
-                                     rays_d, viewdirs, s_val, near, bg)
+        fwd = forward_coarse_sorted
     else:
         fwd = forward_coarse
+    # sorted engines run only where sp does not shard the grids
     sp_kw = {} if sp_mesh(mesh) is None else {"mesh": mesh}
-    return fwd(params, buffers, cfg, box, rays_o, rays_d, viewdirs, s_val,
-               near, bg, **sp_kw)
+    out = fwd(params, buffers, cfg, box, rays_o, rays_d, viewdirs, s_val,
+              near, bg, **sp_kw)
+    if profiling.recording():
+        # the fixed-capacity head's useful work: live rows of rows computed
+        profiling.count("head_live_rows", torch.sum(out["sel_live"]))
+        profiling.count("head_rows", out["sel_live"].numel())
+    return out
 
 
 def _field_sample(cfg: SDFModelConfig, box: SceneBox, field, pts, gather_fn):
@@ -638,12 +644,17 @@ def _pts_at_steps(rays_o, rays_d, t_min, steps, step_dist: float):
 
 
 def _remat(cfg: SDFModelConfig, fn, *args):
-    """``fn(*args)``, recomputed in the backward when ``cfg.shade_remat``
+    """The shading head ``fn(*args)`` in a ``shade`` span, recomputed in
+    the backward (in a ``shade`` span there too) when ``cfg.shade_remat``
     (``jax.checkpoint`` at `sdf_voxel.py:729-731`, `:888-890`)."""
+    def shade(*a):
+        with profiling.span("shade"):
+            return fn(*a)
+
     if cfg.shade_remat and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(fn, *args,
+        return torch.utils.checkpoint.checkpoint(shade, *args,
                                                  use_reentrant=False)
-    return fn(*args)
+    return shade(*args)
 
 
 def _lattice_samples(cfg: SDFModelConfig, box: SceneBox, rays_o, rays_d,
@@ -1157,9 +1168,11 @@ def forward_fine_sorted(params, buffers, cfg: SDFModelConfig, box: SceneBox,
         (b1 - 1.0 + fy2_s) / (sizes[1] - 1.0),
         (b2 - 1.0 + fz2_s) / (sizes[2] - 1.0),
     )
-    rgb_s3 = _shade_fine_cm(params, cfg, rays_xyz2, (vx2_s, vy2_s, vz2_s),
-                            normal2, sdf2_s, k02_s, all_feat_rows, grad_rows,
-                            (gcx, gcy, gcz))
+    with profiling.span("shade"):
+        rgb_s3 = _shade_fine_cm(params, cfg, rays_xyz2,
+                                (vx2_s, vy2_s, vz2_s), normal2, sdf2_s,
+                                k02_s, all_feat_rows, grad_rows,
+                                (gcx, gcy, gcz))
     rgb_u = unsort_channels(iota2_s, rgb_s3)
     rgb_ch = tuple(rgb_u[a].reshape(n, k) for a in range(3))
 

@@ -61,6 +61,7 @@ from fgs_nerf_tpu_torch.train.stage_common import (
     apply_pervoxel_lr, apply_world_bound_scale, config_passthrough,
     drop_pervoxel_lr, fetch_metrics, pg_deduction,
 )
+from fgs_nerf_tpu_torch.utils.profiling import span
 
 
 def loss_weights_from_cfg(cfg_train) -> LossWeights:
@@ -120,14 +121,19 @@ def make_loss_and_grads(cfg_model: M.SDFModelConfig, box: SceneBox,
     def fn(params, buffers, rays_o, rays_d, viewdirs, target, s_val, tv_on):
         p = tree_map(lambda t: t.detach().requires_grad_(True), params)
         sv = p["s_val"][0] if cfg_model.s_learn else s_val
-        render = M.forward(p, buffers, cfg_model, box, rays_o, rays_d,
-                           viewdirs, sv, near=near, bg=bg, mesh=mesh)
+        with span("forward"):
+            render = M.forward(p, buffers, cfg_model, box, rays_o, rays_d,
+                               viewdirs, sv, near=near, bg=bg, mesh=mesh)
         nonempty = buffers.get("nonempty_mask") if use_nonempty_mask else None
-        losses = compute_losses(render, target, viewdirs, p, cfg_model,
-                                loss_w, sdf_tv=sdf_tv,
-                                smooth_grad_tv=smooth_grad_tv, tv_on=tv_on,
-                                nonempty_mask=nonempty, mesh=mesh)
-        return render, losses, param_grads(losses["loss"], p)
+        with span("loss"):
+            losses = compute_losses(render, target, viewdirs, p, cfg_model,
+                                    loss_w, sdf_tv=sdf_tv,
+                                    smooth_grad_tv=smooth_grad_tv,
+                                    tv_on=tv_on, nonempty_mask=nonempty,
+                                    mesh=mesh)
+        with span("backward"):
+            grads = param_grads(losses["loss"], p)
+        return render, losses, grads
 
     return fn
 
@@ -157,9 +163,10 @@ def dp_reduce(mesh, grads: Dict[str, Any], metrics: Dict[str, torch.Tensor]):
     if mesh is None:
         return grads, metrics
     names = list(metrics)
-    leaves, mvec = mesh_lib.dp_mean(
-        mesh, tree_leaves(grads),
-        torch.stack([metrics[k].float() for k in names]))
+    with span("dp_reduce"):
+        leaves, mvec = mesh_lib.dp_mean(
+            mesh, tree_leaves(grads),
+            torch.stack([metrics[k].float() for k in names]))
     it = iter(leaves)
     return tree_map(lambda _: next(it), grads), dict(zip(names, mvec.unbind(0)))
 
@@ -184,33 +191,36 @@ def make_train_step(cfg_model: M.SDFModelConfig, box: SceneBox,
 
     def step_fn(params, opt_state, buffers, rays_o, rays_d, viewdirs, target,
                 s_val, lrs, tv_on):
-        render, losses, grads = loss_and_grads(
-            params, buffers, rays_o, rays_d, viewdirs, target, s_val, tv_on)
-        with torch.no_grad():
-            metrics = step_metrics(render, losses)
-        grads, metrics = dp_reduce(mesh, grads, metrics)
+        with span("train_step"):
+            render, losses, grads = loss_and_grads(
+                params, buffers, rays_o, rays_d, viewdirs, target, s_val,
+                tv_on)
+            with torch.no_grad(), span("metrics"):
+                metrics = step_metrics(render, losses)
+            grads, metrics = dp_reduce(mesh, grads, metrics)
 
-        if inject_tv:
-            # fine-stage TV injected straight into the gradient
-            # (`train/trainer.py:168-182`)
-            scale = max(cfg_model.world_size) / 128.0
-            if weight_tv_density > 0 and sdf_tv > 0:
-                w = weight_tv_density * sdf_tv / n_rand * scale * tv_on
-                grads["sdf"] = tv_grad(params["sdf"], grads["sdf"], w, w, w,
-                                       tv_dense, mesh=mesh)
-            if weight_tv_k0 > 0:
-                wk = weight_tv_k0 / n_rand * scale * tv_on
-                grads["k0"] = tv_grad(params["k0"], grads["k0"], wk, wk, wk,
-                                      tv_dense, mesh=mesh)
+            if inject_tv:
+                # fine-stage TV injected straight into the gradient
+                # (`train/trainer.py:168-182`)
+                with span("tv"):
+                    scale = max(cfg_model.world_size) / 128.0
+                    if weight_tv_density > 0 and sdf_tv > 0:
+                        w = weight_tv_density * sdf_tv / n_rand * scale * tv_on
+                        grads["sdf"] = tv_grad(params["sdf"], grads["sdf"], w,
+                                               w, w, tv_dense, mesh=mesh)
+                    if weight_tv_k0 > 0:
+                        wk = weight_tv_k0 / n_rand * scale * tv_on
+                        grads["k0"] = tv_grad(params["k0"], grads["k0"], wk,
+                                              wk, wk, tv_dense, mesh=mesh)
 
-        with torch.no_grad():
-            new_params, new_opt = adam_update(params, grads, opt_state, lrs,
-                                              opts,
-                                              per_lr=buffers.get("per_lr"))
-            if not cfg_model.s_learn:
-                new_params["s_val"] = torch.as_tensor(
-                    s_val, dtype=torch.float32,
-                    device=params["s_val"].device).reshape(1).clone()
+            with torch.no_grad(), span("adam"):
+                new_params, new_opt = adam_update(
+                    params, grads, opt_state, lrs, opts,
+                    per_lr=buffers.get("per_lr"))
+                if not cfg_model.s_learn:
+                    new_params["s_val"] = torch.as_tensor(
+                        s_val, dtype=torch.float32,
+                        device=params["s_val"].device).reshape(1).clone()
         return new_params, new_opt, metrics
 
     return step_fn
@@ -452,174 +462,195 @@ def train_stage(cfg, stage: str, data_dict: Dict[str, Any],
 
     s_val = None
     for global_step in range(1 + start, n_iters + 1):
-        # progressive scaling (`train/trainer.py:460-495`)
-        if global_step in pg_scale:
-            # on full grids; the mask cache's nonempty mask is rebuilt
-            # and the per-voxel rates dropped below
-            params = full()
-            cur_voxels = int(cur_voxels * scale_ratio)
-            new_cfg = build_cfg(cur_voxels)
-            params = M.scale_volume_grid(params, new_cfg)
-            cfg_m = new_cfg
-            if global_step in reset_iter:
-                params = M.reset_refnet(params, gen, cfg_m)
-                if cfg_model_blk.get("maskout_near_cam_vox", False):
-                    params = M.maskout_near_cam_vox(
-                        params, _cam_origins(data_dict, dev), near, cfg_m, box)
-            if "mask_cache" in buffers:
-                params, buffers = M.set_nonempty_mask(params, buffers, cfg_m,
-                                                      box)
-            opt_state = init_state(params)
-            lr_state = schedules.LrState(
-                schedules.initial_lrs(cfg_train, set(params)))
-            # reference quirk: per-voxel LR is not recomputed after a rescale
-            opts, buffers = drop_pervoxel_lr(opts, buffers)
-            params, opt_state, buffers = _place(mesh, params, opt_state,
-                                                buffers)
-            log.info(f"[{stage}] pg_scale at {global_step}: voxels -> "
-                     f"{cur_voxels} world_size -> {cfg_m.world_size}")
+        with span("stage_step"):
+            # progressive scaling (`train/trainer.py:460-495`)
+            if global_step in pg_scale:
+                # on full grids; the mask cache's nonempty mask is rebuilt
+                # and the per-voxel rates dropped below
+                with span("rung"):
+                    params = full()
+                    cur_voxels = int(cur_voxels * scale_ratio)
+                    new_cfg = build_cfg(cur_voxels)
+                    params = M.scale_volume_grid(params, new_cfg)
+                    cfg_m = new_cfg
+                    if global_step in reset_iter:
+                        params = M.reset_refnet(params, gen, cfg_m)
+                        if cfg_model_blk.get("maskout_near_cam_vox", False):
+                            params = M.maskout_near_cam_vox(
+                                params, _cam_origins(data_dict, dev), near,
+                                cfg_m, box)
+                    if "mask_cache" in buffers:
+                        params, buffers = M.set_nonempty_mask(
+                            params, buffers, cfg_m, box)
+                    opt_state = init_state(params)
+                    lr_state = schedules.LrState(
+                        schedules.initial_lrs(cfg_train, set(params)))
+                    # reference quirk: per-voxel LR is not recomputed after
+                    # a rescale
+                    opts, buffers = drop_pervoxel_lr(opts, buffers)
+                    params, opt_state, buffers = _place(mesh, params,
+                                                        opt_state, buffers)
+                log.info(f"[{stage}] pg_scale at {global_step}: voxels -> "
+                         f"{cur_voxels} world_size -> {cfg_m.world_size}")
 
-        # incremental voxel box
-        bounds = schedules.inc_bounds(global_step, cfg_train)
-        if bounds is not None:
-            buffers["inc_lower"] = to_device(bounds[0], dev, torch.float32)
-            buffers["inc_upper"] = to_device(bounds[1], dev, torch.float32)
-        else:
-            buffers.pop("inc_lower", None)
-            buffers.pop("inc_upper", None)
+            # incremental voxel box
+            bounds = schedules.inc_bounds(global_step, cfg_train)
+            if bounds is not None:
+                buffers["inc_lower"] = to_device(bounds[0], dev,
+                                                 torch.float32)
+                buffers["inc_upper"] = to_device(bounds[1], dev,
+                                                 torch.float32)
+            else:
+                buffers.pop("inc_lower", None)
+                buffers.pop("inc_upper", None)
 
-        # batch selection: the JAX package's numpy draws, gathered on device
-        if flat:
-            sel = to_device(next(index_gen), dev)
-            batch = [a[sel] for a in ray_dev]
-        elif sampler == "patch":
-            b = int(next(view_gen)[0])
-            patch = int(round(np.sqrt(n_rand)))
-            r0 = int(rng.integers(0, rgb_tr.shape[1] - patch))
-            c0 = int(rng.integers(0, rgb_tr.shape[2] - patch))
-            batch = [a[b, r0:r0 + patch, c0:c0 + patch].reshape(-1, 3)
-                     for a in ray_dev]
-        else:
-            b = rng.integers(0, n_views_tr, n_rand)
-            r = rng.integers(0, rgb_tr.shape[1], n_rand)
-            c = rng.integers(0, rgb_tr.shape[2], n_rand)
-            bi, ri, ci = to_device(np.stack([b, r, c]), dev)
-            batch = [a[bi, ri, ci] for a in ray_dev]
-        # every rank drew the same global batch; it keeps its dp rows
-        batch = mesh_lib.shard_batch(mesh, *batch)
+            # batch selection: the JAX package's numpy draws, gathered on
+            # device
+            with span("batch"):
+                if flat:
+                    sel = to_device(next(index_gen), dev)
+                    batch = [a[sel] for a in ray_dev]
+                elif sampler == "patch":
+                    b = int(next(view_gen)[0])
+                    patch = int(round(np.sqrt(n_rand)))
+                    r0 = int(rng.integers(0, rgb_tr.shape[1] - patch))
+                    c0 = int(rng.integers(0, rgb_tr.shape[2] - patch))
+                    batch = [a[b, r0:r0 + patch, c0:c0 + patch].reshape(-1, 3)
+                             for a in ray_dev]
+                else:
+                    b = rng.integers(0, n_views_tr, n_rand)
+                    r = rng.integers(0, rgb_tr.shape[1], n_rand)
+                    c = rng.integers(0, rgb_tr.shape[2], n_rand)
+                    bi, ri, ci = to_device(np.stack([b, r, c]), dev)
+                    batch = [a[bi, ri, ci] for a in ray_dev]
+                # every rank drew the same global batch; it keeps its dp rows
+                batch = mesh_lib.shard_batch(mesh, *batch)
 
-        s_val = float(s_val_schedule(global_step, cfg_m.s_ratio, cfg_m.s_start,
-                                     cfg_m.step_start))
-        step_fn = build_step(global_step)
-        tv_on = 1.0 if schedules.tv_active(global_step, cfg_train) else 0.0
-        # the step's scalars in one non-blocking copy: s_val, tv_on, lrs
-        names = list(lr_state.lrs)
-        scal = to_device([s_val, tv_on] + [lr_state.lrs[k] for k in names],
-                         dev, torch.float32)
-        lrs = dict(zip(names, scal[2:]))
-        params, opt_state, metrics = step_fn(
-            params, opt_state, buffers, *batch, scal[0], lrs, scal[1])
+            s_val = float(s_val_schedule(global_step, cfg_m.s_ratio,
+                                         cfg_m.s_start, cfg_m.step_start))
+            step_fn = build_step(global_step)
+            tv_on = 1.0 if schedules.tv_active(global_step, cfg_train) else 0.0
+            # the step's scalars in one non-blocking copy: s_val, tv_on, lrs
+            names = list(lr_state.lrs)
+            scal = to_device([s_val, tv_on]
+                             + [lr_state.lrs[k] for k in names],
+                             dev, torch.float32)
+            lrs = dict(zip(names, scal[2:]))
+            params, opt_state, metrics = step_fn(
+                params, opt_state, buffers, *batch, scal[0], lrs, scal[1])
 
-        # host-side schedule updates (end of step)
-        schedules.update_lrs(lr_state, global_step, cfg_train)
-        schedules.apply_tv_updates(tv_terms, global_step, cfg_train)
+            # host-side schedule updates (end of step)
+            schedules.update_lrs(lr_state, global_step, cfg_train)
+            schedules.apply_tv_updates(tv_terms, global_step, cfg_train)
 
-        # step-indexed model mutations: each is a new config, hence a new step
-        s_updates = cfg_model_blk.get("s_updates", {})
-        if (global_step - 1) in s_updates:
-            cfg_m = dataclasses.replace(cfg_m, **s_updates[global_step - 1])
-            log.info(f"[{stage}] s_updates at {global_step - 1}: "
-                     f"{s_updates[global_step - 1]}")
-        smooth_updates = cfg_model_blk.get("smooth_updates", {})
-        if (global_step - 1) in smooth_updates:
-            upd = {("smooth_ksize" if k_ == "ksize" else
-                    "smooth_sigma" if k_ == "sigma" else k_): v_
-                   for k_, v_ in smooth_updates[global_step - 1].items()}
-            cfg_m = dataclasses.replace(cfg_m, **upd)
-            log.info(f"[{stage}] smooth_updates at {global_step - 1}: {upd}")
+            # step-indexed model mutations: each is a new config, hence a
+            # new step
+            s_updates = cfg_model_blk.get("s_updates", {})
+            if (global_step - 1) in s_updates:
+                cfg_m = dataclasses.replace(cfg_m,
+                                            **s_updates[global_step - 1])
+                log.info(f"[{stage}] s_updates at {global_step - 1}: "
+                         f"{s_updates[global_step - 1]}")
+            smooth_updates = cfg_model_blk.get("smooth_updates", {})
+            if (global_step - 1) in smooth_updates:
+                upd = {("smooth_ksize" if k_ == "ksize" else
+                        "smooth_sigma" if k_ == "sigma" else k_): v_
+                       for k_, v_ in smooth_updates[global_step - 1].items()}
+                cfg_m = dataclasses.replace(cfg_m, **upd)
+                log.info(f"[{stage}] smooth_updates at {global_step - 1}: "
+                         f"{upd}")
 
-        # metrics stay on the device until the i_print flush
-        pending.append(metrics)
-        if global_step % i_print == 0 or global_step == n_iters:
-            got = fetch_metrics(pending)
-            pending = []
-            means = last_metrics = {
-                k_: float(np.mean([m[k_] for m in got])) for k_ in got[0]}
-            psnrs = [-10.0 * np.log10(max(float(m["mse"]), 1e-12))
-                     for m in got]
-            psnr_hist.extend(psnrs)
-            log.info(
-                f"[{stage}] iter {global_step:6d}/{n_iters} "
-                f"loss {means['loss']:.6f} PSNR {np.mean(psnrs):7.4f} "
-                f"Wmax {means['wmax_mean']:.3f} Wsum {means['wsum_mean']:.3f} "
-                f"W>0 {means['w_nonzero_frac']:.3f} "
-                f"mask% {100 * means['mask_frac']:.2f} "
-                f"ovf% {100 * means['overflow_frac']:.3f} s {s_val:.4g} "
-                f"eps {time.time() - t0:.0f}s")
-            if means.get("overflow_frac", 0.0) > 0.0:
-                if cfg_train.get("capacity_auto_escalate", True):
-                    upd = {}
-                    if means.get("overflow_sample_frac", 0.0) > 0.0:
-                        upd["sample_k"] = _next_capacity(cfg_m.sample_k,
-                                                         cfg_m.s_max)
-                    if means.get("overflow_shade_frac", 0.0) > 0.0:
-                        upd["shade_k"] = _next_capacity(cfg_m.shade_k,
-                                                        cfg_m.s_max)
-                    upd = {k_: v_ for k_, v_ in upd.items()
-                           if v_ != getattr(cfg_m, k_)}
-                    if upd:
-                        cfg_m = dataclasses.replace(cfg_m, **upd)
+            # metrics stay on the device until the i_print flush
+            pending.append(metrics)
+            if global_step % i_print == 0 or global_step == n_iters:
+                with span("flush"):
+                    got = fetch_metrics(pending)
+                pending = []
+                means = last_metrics = {
+                    k_: float(np.mean([m[k_] for m in got])) for k_ in got[0]}
+                psnrs = [-10.0 * np.log10(max(float(m["mse"]), 1e-12))
+                         for m in got]
+                psnr_hist.extend(psnrs)
+                log.info(
+                    f"[{stage}] iter {global_step:6d}/{n_iters} "
+                    f"loss {means['loss']:.6f} PSNR {np.mean(psnrs):7.4f} "
+                    f"Wmax {means['wmax_mean']:.3f} "
+                    f"Wsum {means['wsum_mean']:.3f} "
+                    f"W>0 {means['w_nonzero_frac']:.3f} "
+                    f"mask% {100 * means['mask_frac']:.2f} "
+                    f"ovf% {100 * means['overflow_frac']:.3f} s {s_val:.4g} "
+                    f"eps {time.time() - t0:.0f}s")
+                if means.get("overflow_frac", 0.0) > 0.0:
+                    if cfg_train.get("capacity_auto_escalate", True):
+                        upd = {}
+                        if means.get("overflow_sample_frac", 0.0) > 0.0:
+                            upd["sample_k"] = _next_capacity(cfg_m.sample_k,
+                                                             cfg_m.s_max)
+                        if means.get("overflow_shade_frac", 0.0) > 0.0:
+                            upd["shade_k"] = _next_capacity(cfg_m.shade_k,
+                                                            cfg_m.s_max)
+                        upd = {k_: v_ for k_, v_ in upd.items()
+                               if v_ != getattr(cfg_m, k_)}
+                        if upd:
+                            cfg_m = dataclasses.replace(cfg_m, **upd)
+                            log.warning(
+                                f"[{stage}] capacity overflow on "
+                                f"{100 * means['overflow_frac']:.2f}% of rays "
+                                f"— auto-escalating {upd} "
+                                f"(s_max={cfg_m.s_max})")
+                    else:
                         log.warning(
                             f"[{stage}] capacity overflow on "
-                            f"{100 * means['overflow_frac']:.2f}% of rays — "
-                            f"auto-escalating {upd} (s_max={cfg_m.s_max})")
-                else:
-                    log.warning(
-                        f"[{stage}] capacity overflow on "
-                        f"{100 * means['overflow_frac']:.2f}% of rays "
-                        f"(sample_k={cfg_m.sample_k}, shade_k={cfg_m.shade_k}, "
-                        f"s_max={cfg_m.s_max}): samples are being dropped and "
-                        f"accuracy degrades — raise sample_k/shade_k (or set "
-                        f"them to -1 for exact auto-capacity)")
+                            f"{100 * means['overflow_frac']:.2f}% of rays "
+                            f"(sample_k={cfg_m.sample_k}, "
+                            f"shade_k={cfg_m.shade_k}, "
+                            f"s_max={cfg_m.s_max}): samples are being dropped "
+                            f"and accuracy degrades — raise sample_k/shade_k "
+                            f"(or set them to -1 for exact auto-capacity)")
 
-        # periodic validation: one random test view, every view at the end
-        if i_validate and (global_step % i_validate == 0
-                           or global_step == n_iters):
-            from fgs_nerf_tpu_torch.eval.render import (
-                make_render_fn, render_viewpoints,
-            )
+            # periodic validation: one random test view, every view at the
+            # end
+            if i_validate and (global_step % i_validate == 0
+                               or global_step == n_iters):
+                from fgs_nerf_tpu_torch.eval.render import (
+                    make_render_fn, render_viewpoints,
+                )
 
-            i_test = np.asarray(data_dict["i_test"])
-            pick = ([int(rng.integers(0, len(i_test)))]
-                    if global_step != n_iters else list(range(len(i_test))))
-            sel_views = i_test[pick]
-            params_full = full()
-            if mesh_lib.is_writer(mesh):
-                rc = make_render_fn(cfg_m, box, near=near, bg=bg)
-                render_viewpoints(
-                    rc, params_full, buffers,
-                    np.asarray(data_dict["poses"])[sel_views],
-                    np.asarray(data_dict["HW"])[sel_views],
-                    np.asarray(data_dict["Ks"])[sel_views], conv, s_val,
-                    gt_imgs=np.asarray(data_dict["images"])[sel_views],
-                    masks=np.asarray(data_dict["masks"])[sel_views],
-                    savedir=os.path.join(out_dir, f"render_test_{stage}"),
-                    eval_ssim=True, logger=log, step=global_step)
-            del params_full
-            mesh_lib.barrier(mesh)
+                with span("validate"):
+                    i_test = np.asarray(data_dict["i_test"])
+                    pick = ([int(rng.integers(0, len(i_test)))]
+                            if global_step != n_iters
+                            else list(range(len(i_test))))
+                    sel_views = i_test[pick]
+                    params_full = full()
+                    if mesh_lib.is_writer(mesh):
+                        rc = make_render_fn(cfg_m, box, near=near, bg=bg)
+                        views = {k_: np.asarray(data_dict[k_])[sel_views]
+                                 for k_ in ("poses", "HW", "Ks", "images",
+                                            "masks")}
+                        render_viewpoints(
+                            rc, params_full, buffers, views["poses"],
+                            views["HW"], views["Ks"], conv, s_val,
+                            gt_imgs=views["images"], masks=views["masks"],
+                            savedir=os.path.join(out_dir,
+                                                 f"render_test_{stage}"),
+                            eval_ssim=True, logger=log, step=global_step)
+                    del params_full
+                    mesh_lib.barrier(mesh)
 
-        if (global_step == n_iters
-                or global_step % int(cfg_train.get("save_iter", 1 << 30)) == 0):
-            params_full, opt_full = full(with_opt=True)
-            ckpt_lib.save_checkpoint(
-                ckpt_path, global_step=global_step, params=params_full,
-                opt_state=opt_full,
-                sdf_mask=M.build_sdf_mask(params_full, cfg_m),
-                model_kwargs=dataclasses.asdict(cfg_m),
-                xyz_min=box.xyz_min, xyz_max=box.xyz_max, lrs=lr_state.lrs,
-                mesh=mesh)
-            log.info(f"[{stage}] checkpoint saved at {ckpt_path}")
-            del params_full, opt_full
+            save_iter = int(cfg_train.get("save_iter", 1 << 30))
+            if global_step == n_iters or global_step % save_iter == 0:
+                with span("checkpoint"):
+                    params_full, opt_full = full(with_opt=True)
+                    ckpt_lib.save_checkpoint(
+                        ckpt_path, global_step=global_step,
+                        params=params_full, opt_state=opt_full,
+                        sdf_mask=M.build_sdf_mask(params_full, cfg_m),
+                        model_kwargs=dataclasses.asdict(cfg_m),
+                        xyz_min=box.xyz_min, xyz_max=box.xyz_max,
+                        lrs=lr_state.lrs, mesh=mesh)
+                log.info(f"[{stage}] checkpoint saved at {ckpt_path}")
+                del params_full, opt_full
 
     params = full()
     return StageResult(params=params, cfg_model=cfg_m, box=box,

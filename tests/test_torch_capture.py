@@ -54,7 +54,6 @@ from fgs_nerf_tpu.models import sdf_voxel as MJ
 from fgs_nerf_tpu.train import bbox as bbox_j
 from fgs_nerf_tpu.train import trainer as TJ
 from fgs_nerf_tpu.train.pipeline import run_training as run_training_j
-from fgs_nerf_tpu.utils import profiling as PFJ
 
 from fgs_nerf_tpu_torch import run_colmap as RCT
 from fgs_nerf_tpu_torch.config.base import load_config
@@ -430,23 +429,6 @@ def test_pose_helpers_match_jax():
     for fn in (RT.get_random_poses, RJ.get_random_poses):
         with pytest.raises(NotImplementedError):
             fn(poses, "spiral")
-
-
-def test_buckets_match_jax(monkeypatch):
-    """``Buckets`` on a stubbed clock: the same sums and summary."""
-    out = []
-    for mod in (PFT, PFJ):
-        clock = iter([0.0, 1.25, 3.0, 3.5, 10.0, 10.75])
-        monkeypatch.setattr(mod.time, "perf_counter", lambda: next(clock))
-        b = mod.Buckets("ray_sample", "render_opt")
-        b.tick("ray_sample")
-        b.tick("render_opt")
-        b.reset_clock()
-        b.tick("log")
-        b.tick("ray_sample")
-        out.append((dict(b.t), b.summary()))
-    assert out[0] == out[1]
-    assert out[0][0] == {"ray_sample": 2.0, "render_opt": 1.75, "log": 6.5}
 
 
 def test_trace_steps_writes_a_trace_and_asks_for_the_card(tmp_path):
