@@ -1555,7 +1555,10 @@ def _mlp_phase(torch, np, card, dev, batch, n_rand):
                      {k: v.detach().clone() for k, v in mlp_params.items()}))
         return real(mlp_params, blocks, bf16)
 
-    with _patched([(M, "_mlp_apply_cm", rec)]):
+    # the head's capacity, every row of the pass-2 stream (M = n_rand x
+    # shade_k), not the live prefix the step computes
+    with _patched([(M, "_mlp_apply_cm", rec),
+                   (M, "HEAD_ROW_MULTIPLE", 1 << 62)]):
         loss_and_grads(params0, {}, *batch, s_val, 1.0)
     torch.cuda.synchronize()
     del params0

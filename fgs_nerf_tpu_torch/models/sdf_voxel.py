@@ -28,13 +28,14 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from fgs_nerf_tpu_torch.core.box import SceneBox, grid_resolution, max_samples_per_ray
 from fgs_nerf_tpu_torch.core.grids import (
     init_tensorf_params, tensorf_densify, tensorf_scale,
 )
-from fgs_nerf_tpu_torch.device import DeviceLike, resolve_device
+from fgs_nerf_tpu_torch.device import DeviceLike, resolve_device, to_device
 from fgs_nerf_tpu_torch.models.mlp import (
     init_mlp, mlp_apply, refnet_dims, rgbnet_dims,
 )
@@ -271,8 +272,7 @@ def mask_cache_query(mc: Dict[str, torch.Tensor], xyz: torch.Tensor,
     """Trilinear lookup >= thres with the exact f32 threshold
     (`sdf_voxel.py:349-375`, CPU branch)."""
     box = SceneBox(mc["xyz_min"], mc["xyz_max"])
-    sizes = torch.tensor(mc["grid"].shape[:3], dtype=torch.float32,
-                         device=xyz.device)
+    sizes = to_device(mc["grid"].shape[:3], xyz.device, torch.float32)
     val = _trilinear_sample_index_impl(mc["grid"],
                                        box.normalize(xyz) * (sizes - 1.0))
     return val[..., 0] >= thres
@@ -538,7 +538,8 @@ def _enc_cm(parts, n_freq: int) -> torch.Tensor:
     [x3 | sin(x3 * f) | cos(x3 * f)], rows axis-major then frequency."""
     x3 = torch.stack(parts, dim=0)
     freqs = freq_bank(n_freq, x3.device)
-    xf = (x3[:, None, :] * freqs[None, :, None]).reshape(-1, x3.shape[-1])
+    xf = (x3[:, None, :] * freqs[None, :, None]).reshape(3 * n_freq,
+                                                         x3.shape[-1])
     return torch.cat([x3, torch.sin(xf), torch.cos(xf)], dim=0)
 
 
@@ -590,10 +591,14 @@ def forward(params, buffers, cfg: SDFModelConfig, box: SceneBox, rays_o,
     sp_kw = {} if sp_mesh(mesh) is None else {"mesh": mesh}
     out = fwd(params, buffers, cfg, box, rays_o, rays_d, viewdirs, s_val,
               near, bg, **sp_kw)
+    # the sorted fine head computes its stream's live prefix; the other
+    # heads every slot of their fixed capacity
+    head_rows = out.pop("head_rows") if fwd is forward_fine_sorted else None
     if profiling.recording():
-        # the fixed-capacity head's useful work: live rows of rows computed
+        # the head's useful work: live rows of rows computed
         profiling.count("head_live_rows", torch.sum(out["sel_live"]))
-        profiling.count("head_rows", out["sel_live"].numel())
+        profiling.count("head_rows", out["sel_live"].numel()
+                        if head_rows is None else head_rows)
     return out
 
 
@@ -996,6 +1001,38 @@ def _normalize_grad(gx, gy, gz):
     return hx / hn, hy / hn, hz / hn
 
 
+HEAD_ROW_MULTIPLE = 1024  # the sorted fine head's row count is a multiple
+
+
+def _live_count(keys: torch.Tensor, r_sent: int):
+    """The count of ``keys`` below the sentinel ``r_sent``, sent to the
+    host without a wait: (count, event), the count a pinned host tensor
+    that a non-blocking copy fills by the time the event completes (on
+    the CPU the count itself and no event)."""
+    live = torch.count_nonzero(keys < r_sent)
+    if not live.is_cuda:
+        return live, None
+    host = torch.empty((), dtype=live.dtype, pin_memory=True)
+    host.copy_(live, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def _head_rows(count, m: int) -> Tuple[int, int]:
+    """The live rows of ``_live_count`` (one host read, which waits for
+    its copy) and the sorted fine head's row count: those rounded up to
+    ``HEAD_ROW_MULTIPLE``, so that the caching allocator reuses the
+    head's blocks from step to step, and at most the stream's length
+    ``m``."""
+    host, done = count
+    if done is not None:
+        done.synchronize()
+    live = int(host)
+    padded = -(-live // HEAD_ROW_MULTIPLE) * HEAD_ROW_MULTIPLE
+    return live, min(padded, m)
+
+
 def forward_fine_sorted(params, buffers, cfg: SDFModelConfig, box: SceneBox,
                         rays_o, rays_d, viewdirs, s_val, near: float,
                         bg: float) -> Dict[str, torch.Tensor]:
@@ -1009,7 +1046,25 @@ def forward_fine_sorted(params, buffers, cfg: SDFModelConfig, box: SceneBox,
     hierarchical taps (B5, backward B6) — z/y taps on the z-minor sort,
     x taps on an x-minor sort of the transposed grid — the finite
     differences, rgbnet -> refnet shading, and three rgb channels back to
-    ray order for compositing."""
+    ray order for compositing.
+
+    The head shades the live prefix of the pass-2 stream alone: a dead
+    slot's key is the sentinel ``r_sent``, which the stable sort puts
+    last, and a live slot is always in the grid (pass 2 recomputes the
+    pass-1 points, whose ``valid`` is stricter than ``ok``).  The count
+    of keys below ``r_sent`` leaves for the host before the pass-2 sort
+    (``_live_count``) and is read just before the head (``_head_rows``,
+    the step's one wait), so the card has the sort, the serve and the
+    taps queued when the host resumes; the head's
+    inputs are cut to that count rounded up to ``HEAD_ROW_MULTIPLE``
+    (at most ``m2``; the extra rows are dead sentinel rows, finite), and
+    its output's live rows are padded with 0 back to ``m2``.  Dead
+    slots of ``sel_rgb_ch`` so read 0, not the head's value at a
+    sentinel row; every consumer multiplies them by a zero weight (the
+    composite below, ``rgbper`` in ``train/losses.py``), so outputs and
+    gradients are the full stream's up to float32 summation order.  With
+    no live slot the head runs on zero rows and its leaves get zero
+    gradients.  The returned ``head_rows`` is the rows it computed."""
     n = rays_o.shape[0]
     dist = cfg.step_dist
     sizes = cfg.world_size
@@ -1094,6 +1149,7 @@ def forward_fine_sorted(params, buffers, cfg: SDFModelConfig, box: SceneBox,
     rows2, (fx2, fy2, fz2), ok2 = rows_fracs_cm(ix2, iy2, iz2, sizes)
     keys2 = torch.where(sel_live & ok2, rows2,
                         torch.full_like(rows2, r_sent)).reshape(m2)
+    live_count = _live_count(keys2, r_sent)
     vds2 = [viewdirs[:, a:a + 1].expand(n, k).reshape(m2) for a in range(3)]
     keys2_s, iota2_s, fx2_s, fy2_s, fz2_s, vx2_s, vy2_s, vz2_s = sort_stream(
         keys2, fx2.reshape(m2), fy2.reshape(m2), fz2.reshape(m2), *vds2,
@@ -1168,11 +1224,20 @@ def forward_fine_sorted(params, buffers, cfg: SDFModelConfig, box: SceneBox,
         (b1 - 1.0 + fy2_s) / (sizes[1] - 1.0),
         (b2 - 1.0 + fz2_s) / (sizes[2] - 1.0),
     )
+
+    with profiling.span("head_count"):
+        n_live, n_head = _head_rows(live_count, m2)
+
+    def prefix(rows):  # the head's rows: the stream's live prefix
+        return [r[..., :n_head] for r in rows]
+
+    head_in = (prefix(rays_xyz2), prefix((vx2_s, vy2_s, vz2_s)),
+               prefix(normal2), sdf2_s[:n_head], k02_s[:, :n_head],
+               prefix(all_feat_rows), prefix(grad_rows),
+               prefix((gcx, gcy, gcz)))
     with profiling.span("shade"):
-        rgb_s3 = _shade_fine_cm(params, cfg, rays_xyz2,
-                                (vx2_s, vy2_s, vz2_s), normal2, sdf2_s,
-                                k02_s, all_feat_rows, grad_rows,
-                                (gcx, gcy, gcz))
+        rgb_h = _shade_fine_cm(params, cfg, *head_in)
+    rgb_s3 = F.pad(rgb_h[:, :n_live], (0, m2 - n_live))
     rgb_u = unsort_channels(iota2_s, rgb_s3)
     rgb_ch = tuple(rgb_u[a].reshape(n, k) for a in range(3))
 
@@ -1203,6 +1268,7 @@ def forward_fine_sorted(params, buffers, cfg: SDFModelConfig, box: SceneBox,
         "overflow_sample": sample_overflow,
         "overflow_shade": overflow,
         "s_val": s_val,
+        "head_rows": n_head,
     }
 
 

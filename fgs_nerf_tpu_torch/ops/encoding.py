@@ -8,11 +8,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fgs_nerf_tpu_torch.device import to_device
+
 
 def freq_bank(n: int, device=None) -> torch.Tensor:
-    """[2^0, ..., 2^(n-1)] (`ops/encoding.py:19-21`)."""
-    return torch.tensor([2.0**i for i in range(n)], dtype=torch.float32,
-                        device=device)
+    """[2^0, ..., 2^(n-1)] (`ops/encoding.py:19-21`), copied to the card
+    without a synchronize."""
+    return to_device([2.0**i for i in range(n)], device or "cpu",
+                     torch.float32)
 
 
 def sincos_encode(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from fgs_nerf_tpu_torch.core.box import SceneBox
-from fgs_nerf_tpu_torch.ops.scatter import corner_scatter_grid_grad
+from fgs_nerf_tpu_torch.device import to_device
+from fgs_nerf_tpu_torch.ops.scatter import CORNERS, corner_scatter_grid_grad
 
 
 def _corner_gather(flat_grid: torch.Tensor, ci: torch.Tensor,
@@ -39,21 +40,18 @@ def _trilinear_sample_index_impl(grid: torch.Tensor,
     """8-corner trilinear interpolation at index-space coords
     (`ops/interp.py:69-85`): the corner weight is the product of the
     per-axis weights in x, y, z order, the corners are summed dz fastest."""
-    sizes = torch.tensor(grid.shape[:3], dtype=torch.int64, device=grid.device)
+    sizes = to_device(grid.shape[:3], grid.device, torch.int64)
+    offs = to_device(CORNERS, grid.device, torch.int64)
     flat = grid.reshape(-1, grid.shape[-1])
     i0 = torch.floor(idx)
     f = idx - i0
     i0 = i0.long()
     wa = [(1.0 - f[..., a], f[..., a]) for a in range(3)]
     out = None
-    for ox in (0, 1):
-        for oy in (0, 1):
-            for oz in (0, 1):
-                w = wa[0][ox] * wa[1][oy] * wa[2][oz]
-                off = torch.tensor((ox, oy, oz), dtype=torch.int64,
-                                   device=grid.device)
-                term = w[..., None] * _corner_gather(flat, i0 + off, sizes)
-                out = term if out is None else out + term
+    for k, (ox, oy, oz) in enumerate(CORNERS):
+        w = wa[0][ox] * wa[1][oy] * wa[2][oz]
+        term = w[..., None] * _corner_gather(flat, i0 + offs[k], sizes)
+        out = term if out is None else out + term
     return out
 
 

@@ -14,6 +14,7 @@ from typing import Tuple
 
 import torch
 
+from fgs_nerf_tpu_torch.device import to_device
 from fgs_nerf_tpu_torch.ops.cuda import scatter_combine as B7
 
 CORNERS = tuple((dx, dy, dz) for dx in (0, 1) for dy in (0, 1) for dz in (0, 1))
@@ -33,7 +34,8 @@ def corner_scatter_grid_grad(i0: torch.Tensor, fracs: torch.Tensor,
     contribute nothing (the zero-padding forward)."""
     x, y, z, c = grid_shape
     dev = g.device
-    sizes = torch.tensor((x, y, z), dtype=torch.int64, device=dev)
+    sizes = to_device((x, y, z), dev, torch.int64)
+    offs = to_device(CORNERS, dev, torch.int64)
     # bases in a virtual (+2)-padded volume; bases outside [-1, size-1]
     # have no valid corner, so clipping them into range is harmless
     xp, yp, zp = x + 2, y + 2, z + 2
@@ -43,8 +45,8 @@ def corner_scatter_grid_grad(i0: torch.Tensor, fracs: torch.Tensor,
     m = rows_base.shape[0]
 
     w8_cols = []
-    for off in CORNERS:
-        ci = i0 + torch.tensor(off, dtype=torch.int64, device=dev)
+    for k, off in enumerate(CORNERS):
+        ci = i0 + offs[k]
         inb = torch.all((ci >= 0) & (ci < sizes), dim=-1)
         w = ((fracs[:, 0] if off[0] else 1.0 - fracs[:, 0])
              * (fracs[:, 1] if off[1] else 1.0 - fracs[:, 1])

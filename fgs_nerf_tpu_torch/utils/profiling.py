@@ -20,14 +20,18 @@ A counter sums ints and 0-d device tensors; the tensors are kept as they
 are and read once, by :func:`export`, so recording never waits on the
 device.  :func:`export` returns the spans and counters and clears them.
 
-Spans of the program: ``train_step`` > ``forward`` (> ``shade``),
-``loss``, ``backward`` (> ``shade`` where the head is recomputed),
-``metrics``, ``dp_reduce``, ``tv``, ``adam`` (``train/trainer.py``,
-``models/sdf_voxel.py``); ``stage_step``, ``batch``, ``rung``,
-``flush``, ``validate``, ``checkpoint`` (``train_stage``);
+Spans of the program: ``train_step`` > ``forward`` (> ``shade``; on
+the sorted fine path also ``head_count``, the host read of the head's
+live rows), ``loss``, ``backward`` (> ``shade`` where the head is
+recomputed), ``metrics``, ``dp_reduce``, ``tv``, ``adam``
+(``train/trainer.py``, ``models/sdf_voxel.py``); ``stage_step``,
+``batch``, ``rung``, ``flush``, ``validate``, ``checkpoint``
+(``train_stage``);
 ``render_view`` > ``rays``, ``to_host``, ``score``, ``save``
 (``eval/render.py``).  Counters: ``head_live_rows`` and ``head_rows``,
-the shading head's live rows and the rows it computes (``forward``).
+the shading head's live rows and the rows it computes (``forward``; the
+sorted fine head computes its stream's live prefix, the other heads
+every slot).
 
 :func:`trace_steps` (port of ``fgs_nerf_tpu/utils/profiling.py``) is the
 operator's view: a Chrome trace (Perfetto) of the steps run inside it,

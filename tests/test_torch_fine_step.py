@@ -251,6 +251,134 @@ def test_post_adam_params(case, leaf):
         np.testing.assert_array_equal(got[zero], want[zero])
 
 
+def _cube_sdf(cfg_j, rng):
+    """A noisy cube whose faces lie 0.15 inside the grid's edges."""
+    axes = [np.linspace(-1.0, 1.0, n) for n in cfg_j.world_size]
+    g = np.meshgrid(*axes, indexing="ij")
+    r = np.maximum(np.maximum(np.abs(g[0]), np.abs(g[1])), np.abs(g[2]))
+    return (r[..., None] - 0.85 + rng.normal(size=r[..., None].shape) * 0.02
+            ).astype(np.float32)
+
+
+def _compact_rays(kind, n, rng):
+    """``no_live``: rays from above the box pointing away from it;
+    ``all_live``: rays through the sphere 0.3 off its centre (where the
+    SDF's gradient vanishes and n.v is noise); ``grid_edge``: rays
+    grazing a face of the box 0.0-0.1 inside it."""
+    o = np.zeros((n, 3), np.float32)
+    d = np.zeros((n, 3), np.float32)
+    if kind == "grid_edge":
+        for i in range(n):
+            a, b, c = np.roll(np.arange(3), -int(rng.integers(3)))
+            o[i, a] = rng.choice([-1.0, 1.0]) * rng.uniform(0.9, 1.0)
+            o[i, b] = rng.uniform(-1.0, 1.0)
+            o[i, c] = -3.0
+            d[i, c] = 1.0
+            d[i, b] = rng.normal() * 0.2
+            d[i, a] = rng.normal() * 0.05
+    else:
+        o[:] = [0.0, 0.0, 3.0]
+        o += rng.normal(size=(n, 3)).astype(np.float32) * 0.05
+        ring = rng.uniform(0.0, 2.0 * np.pi, size=n)
+        d[:] = np.stack([np.cos(ring), np.sin(ring), 0.0 * ring], -1) * 0.3 - o
+        if kind == "no_live":
+            d = -d
+    v = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    return o, d, v.astype(np.float32), rng.uniform(size=(n, 3)).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("kind,n_rays,shade_k", [
+    ("no_live", 32, 24), ("all_live", 32, 8), ("grid_edge", 128, 24)])
+def test_compacted_head(monkeypatch, kind, n_rays, shade_k):
+    """The sorted fine head computes the pass-2 stream's live prefix
+    (``HEAD_ROW_MULTIPLE`` rows at a time, at most ``m2``) and pads its
+    output with 0: render outputs, loss (``rgbper`` on, which reads the
+    padded rows times a zero weight) and gradients equal the JAX
+    package's full-stream head.  In the pass-2 sorted stream the live
+    rows are exactly the first ``sum(sel_live)``.  ``no_live``: the head
+    runs on zero rows and its leaves get exact zero gradients;
+    ``all_live``: it computes every row; ``grid_edge``: a cube surface
+    at the grid's edges, where the head computes a prefix shorter than
+    ``m2``."""
+    kw = dict(_cfg_kwargs(False), shade_k=shade_k)
+    cfg_j = MJ.make_model_config(**kw)
+    cfg_t = MT.make_model_config(**kw)
+    rng = np.random.default_rng(11)
+    pj, _ = _params_and_rays(cfg_j)
+    if kind == "grid_edge":
+        pj["sdf"] = jnp.asarray(_cube_sdf(cfg_j, rng))
+    batch = _compact_rays(kind, n_rays, rng)
+    loss_w = dict(LOSS_W, weight_rgbper=0.1)
+
+    box_j = SceneBoxJ.create(XYZ_MIN, XYZ_MAX)
+
+    def loss_j(p):
+        r = MJ.forward(p, {}, cfg_j, box_j, *map(jnp.asarray, batch[:3]),
+                       jnp.float32(S_VAL), near=0.2, bg=1.0)
+        losses = compute_losses_j(
+            r, jnp.asarray(batch[3]), jnp.asarray(batch[2]), p, cfg_j,
+            LossWeightsJ(**loss_w), sdf_tv=0.1, smooth_grad_tv=0.05,
+            tv_on=1.0, nonempty_mask=None)
+        return losses["loss"], r
+
+    (lj, rj), gj = jax.jit(jax.value_and_grad(loss_j, has_aux=True))(pj)
+    gj = _flat(gj)
+
+    sorts, heads = [], []
+    real_sort, real_head = MT.sort_stream, MT._head_rows
+    monkeypatch.setattr(MT, "sort_stream",
+                        lambda *a, **k: sorts.append(real_sort(*a, **k))
+                        or sorts[-1])
+    monkeypatch.setattr(MT, "_head_rows",
+                        lambda *a: heads.append(real_head(*a)) or heads[-1])
+    fn = make_loss_and_grads(
+        cfg_t, SceneBox.create(XYZ_MIN, XYZ_MAX, device="cpu"),
+        LossWeights(**loss_w), near=0.2, bg=1.0, sdf_tv=0.1,
+        smooth_grad_tv=0.05, use_nonempty_mask=False)
+    rt, lt, gt = fn(convert.params_from_jax(jax.tree.map(np.asarray, pj),
+                                            "cpu"), {},
+                    *(torch.from_numpy(a) for a in batch),
+                    torch.tensor(S_VAL), 1.0)
+    gt = _flat(convert.params_to_numpy(gt))
+
+    # the live rows lead the pass-2 sorted stream; the head's row count
+    sel = rt["sel_live"].reshape(-1)
+    m2, n_live = sel.numel(), int(sel.sum())
+    iota2_s = sorts[-1][1].long()
+    assert torch.equal(sel[iota2_s], torch.arange(m2) < n_live)
+    mult = MT.HEAD_ROW_MULTIPLE
+    assert heads == [(n_live, min(-(-n_live // mult) * mult, m2))]
+    n_head = heads[0][1]
+    want_rows = {"no_live": 0, "all_live": m2}.get(kind)
+    if want_rows is None:
+        assert 0 < n_live < n_head < m2
+    else:
+        assert n_live == n_head == want_rows
+
+    np.testing.assert_array_equal(sel.reshape(n_rays, shade_k).numpy(),
+                                  np.asarray(rj["sel_live"]))
+    for key in ("rgb_marched", "sigmoid_rgb", "alphainv_cum", "weights",
+                "ndv", "sel_weights", "depth"):
+        tol = 2e-4 if key == "ndv" else 1e-5
+        np.testing.assert_allclose(rt[key].detach().numpy(),
+                                   np.asarray(rj[key]), rtol=tol, atol=tol,
+                                   err_msg=key)
+    live = sel.reshape(n_rays, shade_k).numpy()
+    for got, want in zip(rt["sel_rgb_ch"], rj["sel_rgb_ch"]):
+        got = got.detach().numpy()
+        np.testing.assert_allclose(got[live], np.asarray(want)[live],
+                                   rtol=1e-5, atol=1e-5)
+        assert (got[~live] == 0).all()
+    np.testing.assert_allclose(float(lt["loss"].detach()), float(lj),
+                               rtol=1e-5)
+    for leaf in LEAVES:
+        if kind == "no_live" and leaf.startswith(("rgbnet", "refnet")):
+            assert (gt[leaf] == 0).all() and (gj[leaf] == 0).all(), leaf
+        else:
+            assert _rel_l2(gt[leaf], gj[leaf]) < 1e-4, leaf
+
+
 def test_convert_fine_params_and_init():
     """The fine parameter tree (with ``rgbnet``) crosses the boundary and
     back unchanged, and the port's own init makes the JAX shapes."""

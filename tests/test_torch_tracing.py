@@ -70,6 +70,39 @@ def _coarse_step(engine, device="cpu"):
     return cfg, step, args
 
 
+def _fine_step():
+    """A sorted fine step (the head on its stream's live prefix) and its
+    inputs, at 16^3 voxels, ``N_RAYS`` rays and shade_k 32."""
+    cfg = M.make_model_config(
+        stage="fine", xyz_min=BOX[0], xyz_max=BOX[1], num_voxels=16**3,
+        num_voxels_base=16**3, stepsize=0.5, k0_dim=4, refnet_width=16,
+        refnet_depth=3, rgbnet_width=16, rgbnet_depth=3, posbase_pe=2,
+        viewbase_pe=1, refbase_pe=2, s_ratio=50.0, s_start=0.2, shade_k=32,
+        sample_k=48, grad_feat=(0.5, 1.0), sdf_feat=(0.5, 1.0),
+        fast_color_thres=1e-4, shade_remat=False, engine="sorted")
+    assert cfg.all_displace and 1.0 in cfg.all_displace
+    params = M.init_params(torch.Generator().manual_seed(3), cfg, "cpu")
+    opts = {k: ParamOpts(skip_zero_grad=k in ("k0", "sdf")) for k in params}
+    step = TR.make_train_step(
+        cfg, SceneBox.create(*BOX, device="cpu"),
+        LossWeights(weight_main=1.0, weight_entropy_last=1e-3,
+                    weight_orientation=1e-4, sigmoid_rgb_loss=0.02),
+        opts, near=0.2, bg=1.0, n_rand=N_RAYS, sdf_tv=0.1,
+        smooth_grad_tv=0.05, inject_tv=False, tv_dense=False,
+        weight_tv_density=0.0, weight_tv_k0=0.0, use_nonempty_mask=False)
+    rng = np.random.default_rng(5)
+    o = np.full((N_RAYS, 3), [0, 0, 3.0], np.float32)
+    o += rng.normal(size=(N_RAYS, 3)).astype(np.float32) * 0.2
+    d = rng.normal(size=(N_RAYS, 3)).astype(np.float32) * 0.3 - o
+    v = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    t = rng.uniform(size=(N_RAYS, 3)).astype(np.float32)
+    lrs = {k: torch.tensor(1e-3) for k in params}
+    args = (params, init_state(params), {},
+            *(torch.as_tensor(a) for a in (o, d, v, t)), torch.tensor(0.2),
+            lrs, torch.tensor(1.0))
+    return cfg, step, args
+
+
 def _flat(tree, prefix=""):
     """(path, tensor) of a step's output: dicts, tuples, ``AdamState``."""
     if dataclasses.is_dataclass(tree):
@@ -145,6 +178,28 @@ def test_train_step_span_tree_and_head_fill(engine):
     assert rows == N_RAYS * (cfg.shade_k if engine == "lattice" else slots)
     assert 0 < rec["counters"]["head_live_rows"] <= rows
     assert isinstance(rec["counters"]["head_live_rows"], int)
+    assert np.isfinite(float(metrics["loss"]))
+
+
+def test_sorted_fine_head_counts_its_live_prefix():
+    """The sorted fine head computes its stream's live rows rounded up to
+    ``HEAD_ROW_MULTIPLE`` (at most rays x shade_k), read on the host
+    once a step inside ``forward/head_count``."""
+    cfg, step, args = _fine_step()
+    P.enable()
+    _, _, metrics = step(*args)
+    rec = P.export()
+    paths = Counter(_paths(rec["spans"]))
+    assert paths["train_step/forward/head_count"] == 1
+    assert paths["train_step/forward/shade"] == 1
+    live = rec["counters"]["head_live_rows"]
+    rows = rec["counters"]["head_rows"]
+    cap = N_RAYS * cfg.shade_k
+    mult = M.HEAD_ROW_MULTIPLE
+    assert rows == min(-(-live // mult) * mult, cap)
+    assert 0 < live <= rows <= cap
+    assert live < cap - mult        # the batch has dead slots ...
+    assert rows < cap               # ... which the head does not compute
     assert np.isfinite(float(metrics["loss"]))
 
 
