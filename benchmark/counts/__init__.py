@@ -1,5 +1,5 @@
 """The yardstick's counts: each kernel's logical bytes and operations and
-each step's model FLOPs, from a cell's shapes alone.
+the heads' FLOPs a row, from a cell's shapes alone.
 
 A serve or an accumulate is counted by the logical work it does,
 whatever kernel does it: each sample's position (three float32
@@ -89,9 +89,22 @@ def head_bwd(m: int, dims: List[int], n_in: int) -> Tuple[float, float]:
             4.0 * m * macs(dims))
 
 
-def kernel_bounds(cell: Dict) -> Dict[str, float]:
-    """Least seconds a step (or a render chunk) of each kernel group the
-    cell runs, keyed as ``record.bucket`` names them."""
+def kernel_bounds(cell: Dict, groups=None) -> Dict[str, float]:
+    """Least seconds a step of each kernel group the cell runs, keyed as
+    ``record.bucket`` names them: the frozen groups' below, and each
+    group file's (``groups.load()``, or ``groups``) that runs in the
+    cell."""
+    from benchmark import groups as G
+
+    out = _frozen_bounds(cell)
+    for g in G.load() if groups is None else groups:
+        bound = g.bound_s(cell)
+        if bound is not None:
+            out[g.name] = bound
+    return out
+
+
+def _frozen_bounds(cell: Dict) -> Dict[str, float]:
     n, model, stage = cell["n_rays"], cell["model"], cell["stage"]
     ws = cell["world_size"]
     nodes = ws[0] * ws[1] * ws[2]
@@ -122,10 +135,8 @@ def kernel_bounds(cell: Dict) -> Dict[str, float]:
     return out
 
 
-def head_flops(cell: Dict, backward: bool) -> float:
-    """The heads' product FLOPs of one step (or render chunk) at the
-    samples the capacities fix: forward, plus backward when training."""
-    n, model, fine = cell["n_rays"], cell["model"], cell["stage"] == "fine"
-    m = n * (model["shade_k"] if fine else model["sample_k"])
+def head_row_flops(model: Dict, fine: bool, backward: bool) -> float:
+    """The heads' product FLOPs of one row (a sample the head shades):
+    forward, plus backward when training."""
     total = sum(macs(d) for d in head_dims(model, fine).values())
-    return (6.0 if backward else 2.0) * m * total
+    return (6.0 if backward else 2.0) * total

@@ -5,12 +5,13 @@ stage's state at its final rung.
 
 Set-up makes the state, the mask cache and nonempty mask (through
 ``models/sdf_voxel.py``) and the ground truth of the views the window may
-reach, and renders one chunk to warm up.  The window renders whole views
-in the ring's order from a view drawn from the seed, until its time is
-up; it ends when the last view has been scored.  A traced window, where
-asked for, goes on with the next views.  A seeded sample of each
-rendered view's pixels is then rendered by the plain reference, and each
-view's PSNR and SSIM are scored again by the reference's own code.
+reach, and renders one chunk and scores a small image to warm up.  The
+window renders whole views in the ring's order from a view drawn from the
+seed, until its time is up; it ends when the last view has been scored.
+A traced window, where asked for, goes on with the next views.  A seeded
+sample of each rendered view's pixels is then rendered by the plain
+reference, and each view's PSNR and SSIM are scored again by the
+reference's own code.
 """
 from __future__ import annotations
 
@@ -127,7 +128,7 @@ def window(prog: Program, cell: Cell, gts: List, first: int, seconds: float,
         t1 = time.perf_counter()
     h, w = cell.test["hw"]
     return dict(views=views, units=len(views), work=len(views) * h * w,
-                chunks=prog.chunks, window_s=t1 - t0, trace=tr,
+                window_s=t1 - t0, trace=tr,
                 peak=torch.cuda.max_memory_allocated(dev) if cuda else 0,
                 failed=sum(1 for _, p, s in views
                            if not (np.isfinite(p) and np.isfinite(s))))
@@ -152,6 +153,12 @@ def run(cell: Cell, seconds: float, trace_seconds: float = 0.0,
                                            False, False))
     prog.render_chunk(prog.params, prog.buffers, o, d, v,
                       torch.tensor(cell.s_val, device=dev))
+    # and the scorer: its first SSIM imports scipy.signal (seconds), which
+    # would otherwise land in the window's first view
+    from fgs_nerf_tpu_torch.eval import metrics as metrics_lib
+
+    img = np.zeros((16, 16, 3), np.float32)
+    metrics_lib.rgb_ssim(img, img, max_val=1)
     if cuda:
         torch.cuda.synchronize(dev)
     setup_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
@@ -170,8 +177,9 @@ def run(cell: Cell, seconds: float, trace_seconds: float = 0.0,
     views = [v for x in ("e2e", "traced") if x in rec for v in rec[x].pop("views")]
     rec["readings"], rec["control_gap"] = reference_readings(cell, views, gts,
                                                              control)
-    rec["bounds"] = {}
-    rec["head_flops_per_unit"] = counts.head_flops(cell.count_cell(), False)
+    rec["bounds"] = counts.kernel_bounds(cell.count_cell())
+    rec["head_flops_per_row"] = counts.head_row_flops(
+        cell.model, cell.stage == "fine", False)
     return rec
 
 

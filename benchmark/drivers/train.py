@@ -331,5 +331,6 @@ def run(cell: Cell, seconds: float, trace_seconds: float = 0.0,
     ref = reference_readings(cell, check)
     rec["readings"] = compare(check, ref)
     rec["bounds"] = counts.kernel_bounds(cell.count_cell())
-    rec["head_flops_per_unit"] = counts.head_flops(cell.count_cell(), True)
+    rec["head_flops_per_row"] = counts.head_row_flops(
+        cell.model, cell.stage == "fine", True)
     return rec

@@ -5,14 +5,15 @@
 
 Each metric is read by ``metrics/<name>.py``.  With ``--trace 0`` the
 result's metrics are the cell's end-to-end metrics, read from the
-window.  With ``--trace 1`` its per-layer metrics: the device's from a
-traced window that follows the untraced one, the host's from the
-untraced window, which the profiler does not slow.  Every run also
-decides ``correct`` against the plain reference and prints each
-compared number beside its limit, last on standard error and last in
-the result line.  The run fails (exit 2,
-no result) without a CUDA device, (exit 3) if JAX or the JAX package
-was loaded, and (exit 4) if an end-to-end metric has no reading.
+window.  With ``--trace 1`` its per-layer metrics: the device's and the
+program's spans and counters from a traced window that follows the
+untraced one (``trace.py``, the program's recorder on), the host's from
+the untraced window, which neither the profiler nor the recorder slows.
+Every run also decides ``correct`` against the plain reference and
+prints each compared number beside its limit, last on standard error
+and last in the result line.  The run fails (exit 2, no result) without
+a CUDA device, (exit 3) if JAX or the JAX package was loaded, and (exit
+4) if an end-to-end metric has no reading.
 """
 from __future__ import annotations
 
@@ -26,9 +27,9 @@ import json  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
-from typing import Dict, List, Optional  # noqa: E402
+from typing import Dict, List, Optional, Tuple  # noqa: E402
 
-from benchmark import record  # noqa: E402
+from benchmark import groups, program, record  # noqa: E402
 from benchmark.spec import BENCH_DIR, Spec  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "fgs_nerf_tpu")
@@ -78,11 +79,36 @@ def build_kernels() -> None:
     build_all(kernels)
 
 
+def run_cell(spec: Spec, workload: str, seed: int, seconds: float,
+             trace: bool) -> Tuple[Dict, Dict]:
+    """Set-up, the untraced window, with ``trace`` the traced window, and
+    the reference of one cell on ``cuda:0``: the driver's record and what
+    the metric readers read."""
+    import torch
+
+    wl = spec.workload(workload)
+    traffic = spec.traffic(wl["traffic"])
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_kernels()
+    driver = importlib.import_module(f"benchmark.drivers.{traffic['kind']}")
+    marks = {}
+    cell = driver.Cell(spec.config(wl["config"]), traffic, seed, dev)
+    rec = driver.run(cell, seconds,
+                     float(traffic["trace_seconds"]) if trace else 0.0,
+                     on_setup_done=lambda: marks.setdefault(
+                         "setup_s", time.perf_counter() - T_START))
+    return rec, run_record(rec, traffic["kind"], marks["setup_s"])
+
+
 def run_record(rec: Dict, kind: str, setup_s: float) -> Dict:
     """What the metric readers read (``readers``): the untraced window,
-    and the traced window reduced to device intervals and kernel groups."""
+    and the traced window reduced to device intervals, kernel groups and
+    the program's spans and counters (``program.entry``)."""
     out = dict(kind=kind, bounds=rec["bounds"],
-               head_flops_per_unit=rec["head_flops_per_unit"],
+               head_flops_per_row=rec["head_flops_per_row"],
                e2e=dict(rec["e2e"], setup_s=setup_s))
     tw = rec.get("traced")
     if tw is not None:
@@ -91,15 +117,39 @@ def run_record(rec: Dict, kind: str, setup_s: float) -> Dict:
         out.update(units=tw["units"], window_s=t1 - t0,
                    busy_s=record.busy_within(tr.device, t0, t1),
                    device=tr.device, spans=tr.spans, t0=t0, t1=t1,
-                   groups=record.group_seconds(tr.kernels))
+                   groups=record.group_seconds(tr.kernels, groups.load()),
+                   program=program.entry(tr))
     return out
 
 
 def breakdown(rr: Dict) -> Dict:
+    """The groups that took most device time, and the longest idle gaps,
+    each named by the innermost span open at its middle, the program's
+    (by its own name) or the benchmark's."""
     top = sorted(rr["groups"].items(), key=lambda kv: -kv[1])[:10]
+    spans = rr["spans"] + [(path.split("/")[-1], s, e) for path, s, e
+                           in (rr["program"] or {}).get("spans", ())]
     return {"device_ops": [[k, v] for k, v in top],
-            "idle_gaps": record.named_gaps(rr["device"], rr["spans"],
+            "idle_gaps": record.named_gaps(rr["device"], spans,
                                            rr["t0"], rr["t1"])}
+
+
+def trace_line(rec: Dict, rr: Dict) -> Dict:
+    """The traced window's own numbers: its time a unit over the untraced
+    window's (``cost``) and, with the program's recording, the device
+    seconds of its records, those credited to a span, the share credited
+    to none (``unattributed``) and the program's counters."""
+    e, t = rec["e2e"], rec["traced"]
+    out = {"clock": "anchored" if t["trace"].anchored else "device_span",
+           "cost": (t["window_s"] / t["units"]) / (e["window_s"] / e["units"]),
+           "units": t["units"]}
+    p = rr["program"]
+    if p is not None:
+        out.update(device_s=p["device_total_s"],
+                   credited_s=sum(p["device_s"].values()),
+                   unattributed=p["unattributed_s"] / p["device_total_s"],
+                   counters=p["counters"])
+    return out
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -120,27 +170,13 @@ def main(argv: Optional[List[str]] = None) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0} "
               "found", file=sys.stderr)
         return 2
-    cfg = spec.config(wl["config"])
-    traffic = spec.traffic(wl["traffic"])
     limits = spec.limits(args.workload)
-    dev = torch.device("cuda:0")
-    torch.cuda.set_device(dev)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    build_kernels()
-
-    driver = importlib.import_module(f"benchmark.drivers.{traffic['kind']}")
-    marks = {}
-    cell = driver.Cell(cfg, traffic, args.seed, dev)
-    rec = driver.run(cell, args.seconds,
-                     float(traffic["trace_seconds"]) if args.trace else 0.0,
-                     on_setup_done=lambda: marks.setdefault(
-                         "setup_s", time.perf_counter() - T_START))
+    rec, rr = run_cell(spec, args.workload, args.seed, args.seconds,
+                       bool(args.trace))
     readings = rec["readings"]
     checks = {k: {"value": readings[k], "limit": lim} for k, lim in limits.items()}
     correct = all(c["value"] <= c["limit"] for c in checks.values())
 
-    rr = run_record(rec, traffic["kind"], marks["setup_s"])
     wanted = spec.per_layer(args.workload) if args.trace else spec.end_to_end(args.workload)
     metrics = {}
     for m in wanted:
@@ -156,7 +192,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if found:
         print(f"benchmark: forbidden modules loaded: {found}", file=sys.stderr)
         return 3
-    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(dev),
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": wl["chips"],
               "memory_peak_bytes": int(rec["peak"]),
               **extra}
@@ -165,14 +201,11 @@ def main(argv: Optional[List[str]] = None) -> int:
            "failed": sum(w["failed"] for w in windows), "metrics": metrics,
            "device": device}
     if args.trace:
-        e, t = rec["e2e"], rec["traced"]
         out["breakdown"] = breakdown(rr)
-        # the traced window's time a unit over the untraced window's
-        out["trace"] = {"clock": "anchored" if t["trace"].anchored else "device_span",
-                        "cost": (t["window_s"] / t["units"]) / (e["window_s"] / e["units"])}
+        out["trace"] = trace_line(rec, rr)
     out["card"] = card_line()
-    out["window"] = {"seconds": rec["e2e"]["window_s"], "kept_rays": rec.get("n_kept"),
-                     "pixels": rec.get("n_pixels")}
+    out["window"] = {"seconds": rec["e2e"]["window_s"], "units": rec["e2e"]["units"],
+                     "kept_rays": rec.get("n_kept"), "pixels": rec.get("n_pixels")}
     out["checks"] = checks
     for k, c in checks.items():
         print(f"check {k} = {c['value']!r} limit {c['limit']!r}", file=sys.stderr)

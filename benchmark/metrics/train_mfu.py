@@ -1,6 +1,7 @@
 """The train step's share of the bf16 peak, in percent: the heads'
-product FLOPs a step (forward, and the input and weight cotangents, at
-the samples the capacities fix) over the untraced window."""
+product FLOPs (forward, and the input and weight cotangents) of the
+rows they shade live, from the traced window's ``head_live_rows`` a
+step, over the untraced window's steps and seconds."""
 from benchmark.readers import mfu
 
 read = mfu("train")

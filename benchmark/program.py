@@ -1,16 +1,17 @@
-"""The program's own spans and counters in a traced window, and the device
-time credited to the span that launched it.
+"""The device time of a traced window credited to the span that launched
+it, the synchronizing calls, and the operator's view of one cell.
 
     python -m benchmark.program --workload <cell> --seed <n> --seconds <s>
 
-runs one cell as ``python -m benchmark.harness ... --trace 1`` does, with
-the program's recorder (``fgs_nerf_tpu_torch/utils/profiling.py``) on for
-the traced window alone, and prints one JSON line: the readings below,
-``trace.cost`` and ``trace.unattributed``, the breakdown's idle gaps
-named by program spans too, and the ``program`` entry.  The harness does
-not read these yet: its traced window (``trace.traced``) would have to
-turn the recorder on and keep each record's launch, and ``run_record``
-carry :func:`entry` as ``program`` (PERF.md, open questions).
+runs one cell as ``python -m benchmark.harness ... --trace 1`` does and
+prints one JSON line for the operator: the cell's per-layer readings,
+the traced window's numbers (``harness.trace_line``: ``cost``,
+``unattributed``, the counters) with the records that went
+unattributed, the breakdown's idle gaps, and :func:`summary`.  The
+harness reads the same recording: its traced window (``trace.traced``)
+turns the program's recorder (``fgs_nerf_tpu_torch/utils/profiling.py``)
+on, ``harness.run_record`` carries :func:`entry` as ``program``, and the
+metric files read it through ``readers.py``.
 
 Attribution.  Each kernel, copy or memset record of the CUDA trace
 shares a ``correlation`` id with the runtime or driver call that
@@ -32,105 +33,14 @@ host data).
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
-import os
 import sys
-import tempfile
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from benchmark import record
 from benchmark import trace as T
 
-LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 SYNCS = ("cudaDeviceSynchronize", "cudaStreamSynchronize",
          "cudaEventSynchronize")
-
-
-def recorder():
-    """The program's recorder module, or None where the program has none."""
-    try:
-        from fgs_nerf_tpu_torch.utils import profiling
-    except ImportError:
-        return None
-    return profiling if hasattr(profiling, "enable") else None
-
-
-class ProgramTraced(T.Traced):
-    """``trace.Traced`` that also keeps every device record with its
-    launch, the runtime calls, and the program's recording."""
-
-    def __init__(self):
-        super().__init__()
-        # cat, name, start, end, launch time (None: no launch found)
-        self.records: List[Tuple[str, str, float, float, Optional[float]]] = []
-        self.calls: List[Tuple[str, float, int, Optional[int]]] = []  # name, t, tid, corr
-        self.copies: Dict[int, str] = {}  # correlation -> "HtoD", "DtoH", ...
-        self.recording: Dict = {"spans": [], "counters": {}}
-        self.offset: Optional[float] = None   # trace clock less perf_counter
-
-    def load(self, events: List[Dict]) -> "ProgramTraced":
-        super().load(events)
-        win = [s for name, s, _ in self.host_spans if name == "window"]
-        if self.anchored and win:
-            self.offset = self.window[0] - win[0]
-        launch = {}
-        for e in events:
-            if e.get("cat") in LAUNCH_CATS and "ts" in e:
-                corr = e.get("args", {}).get("correlation")
-                t = float(e["ts"]) * 1e-6
-                if corr is not None:
-                    launch.setdefault(corr, t)
-                if e["cat"] == "cuda_runtime":
-                    self.calls.append((e.get("name", ""), t, e.get("tid", 0), corr))
-        for e in events:
-            if e.get("cat") in T.DEVICE_CATS and "ts" in e and "dur" in e:
-                s = float(e["ts"]) * 1e-6
-                corr = e.get("args", {}).get("correlation")
-                self.records.append((e["cat"], e.get("name", ""), s,
-                                     s + float(e["dur"]) * 1e-6, launch.get(corr)))
-                if e["cat"] == "gpu_memcpy":
-                    # "Memcpy DtoH (Device -> Pageable)"
-                    self.copies[corr] = (e.get("name", "").split() + ["", ""])[1]
-        return self
-
-
-@contextlib.contextmanager
-def traced(device, on: bool = True):
-    """``trace.traced`` with the program's recorder on inside the window
-    and a :class:`ProgramTraced` as its result (None where ``on`` is
-    false: the recorder stays off)."""
-    import torch
-
-    if not on:
-        yield None
-        return
-    prog = recorder()
-    out = ProgramTraced()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        out.anchor = time.perf_counter()
-        torch.cuda.synchronize(device)
-        T._spans = out.host_spans
-        if prog is not None:
-            prog.enable()
-        try:
-            yield out
-        finally:
-            T._spans = None
-            if prog is not None:
-                out.recording = prog.export()
-                prog.disable()
-        torch.cuda.synchronize(device)
-    fd, path = tempfile.mkstemp(prefix="bench_trace_", suffix=".json")
-    os.close(fd)
-    try:
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            out.load(json.load(f)["traceEvents"])
-    finally:
-        os.remove(path)
 
 
 def innermost(spans: Sequence[Tuple[float, float]], times: Sequence[float]
@@ -190,7 +100,7 @@ class Attribution:
         return out
 
 
-def entry(tr: ProgramTraced) -> Optional[Dict]:
+def entry(tr: T.Traced) -> Optional[Dict]:
     """The ``program`` entry of a traced window (None where the trace
     has no anchor or the program recorded nothing): the program's spans
     on the trace's clock, device seconds by span path and unattributed,
@@ -248,72 +158,6 @@ def entry(tr: ProgramTraced) -> Optional[Dict]:
             "counters": dict(tr.recording["counters"])}
 
 
-# ---- readers of the ``program`` entry ---------------------------------
-
-
-def _under(table: Dict, prefix: str):
-    return sum(v for k, v in table.items()
-               if k == prefix or k.startswith(prefix + "/"))
-
-
-def device_ms(path: str, kind: str = "train"):
-    """Device ms a unit credited to the spans under ``path``."""
-    def read(rec):
-        p = rec.get("program")
-        if rec["kind"] != kind or not p or not rec.get("units"):
-            return None
-        return 1e3 * _under(p["device_s"], path) / rec["units"]
-    return read
-
-
-def host_ms(name: str, kind: str):
-    """Host ms a unit inside the program's spans named ``name``."""
-    def read(rec):
-        p = rec.get("program")
-        if rec["kind"] != kind or not p or not rec.get("units") \
-                or name not in p["host_s"]:
-            return None
-        return 1e3 * p["host_s"][name] / rec["units"]
-    return read
-
-
-def syncs_per_unit(root: str, kind: str):
-    """Synchronizing calls a unit under the span path ``root``."""
-    def read(rec):
-        p = rec.get("program")
-        if rec["kind"] != kind or not p or not rec.get("units"):
-            return None
-        return _under(p["syncs"], root) / rec["units"]
-    return read
-
-
-def head_fill(rec: Dict) -> Optional[float]:
-    """100 x the shading head's live rows over the rows it computed."""
-    p = rec.get("program")
-    c = p["counters"] if p else {}
-    if rec["kind"] != "train" or not c.get("head_rows"):
-        return None
-    return 100.0 * c["head_live_rows"] / c["head_rows"]
-
-
-READERS = {
-    "device_ms.forward.train": device_ms("train_step/forward"),
-    "device_ms.shade.train": device_ms("train_step/forward/shade"),
-    "device_ms.backward.train": device_ms("train_step/backward"),
-    "device_ms.tv.train": device_ms("train_step/tv"),
-    "device_ms.adam.train": device_ms("train_step/adam"),
-    "head_fill.train": head_fill,
-    "syncs_per_step.train": syncs_per_unit("train_step", "train"),
-    "host_ms.forward.coarse": host_ms("forward", "train"),
-    "host_ms.backward.coarse": host_ms("backward", "train"),
-    "host_ms.adam.coarse": host_ms("adam", "train"),
-    "syncs_per_step.coarse": syncs_per_unit("train_step", "train"),
-    "host_ms_per_view.rays.eval": host_ms("rays", "eval"),
-    "host_ms_per_view.score.eval": host_ms("score", "eval"),
-    "syncs_per_view.eval": syncs_per_unit("render_view", "eval"),
-}
-
-
 def summary(rr: Dict) -> Dict:
     """What the line shows of the ``program`` entry: a unit's device ms by
     the first two names of each path, host ms by span, syncs by path."""
@@ -331,6 +175,7 @@ def summary(rr: Dict) -> Dict:
 
 def main(argv: Optional[List[str]] = None) -> int:
     from benchmark import harness
+    from benchmark.spec import Spec
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
@@ -339,39 +184,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = ap.parse_args(argv)
 
     harness._cache_env()
-    import importlib
-
     import torch
-
-    from benchmark.spec import Spec
 
     if not torch.cuda.is_available():
         print("benchmark.program: a CUDA device is needed", file=sys.stderr)
         return 2
     spec = Spec()
-    wl = spec.workload(args.workload)
-    cfg, traffic = spec.config(wl["config"]), spec.traffic(wl["traffic"])
-    dev = torch.device("cuda:0")
-    torch.cuda.set_device(dev)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    harness.build_kernels()
-    T.traced = traced
-    driver = importlib.import_module(f"benchmark.drivers.{traffic['kind']}")
-    marks = {}
-    rec = driver.run(driver.Cell(cfg, traffic, args.seed, dev), args.seconds,
-                     float(traffic["trace_seconds"]),
-                     on_setup_done=lambda: marks.setdefault(
-                         "setup_s", time.perf_counter() - harness.T_START))
-    rr = harness.run_record(rec, traffic["kind"], marks["setup_s"])
-    tr = rec["traced"]["trace"]
-    rr["program"] = entry(tr)
-    e, t = rec["e2e"], rec["traced"]
+    rec, rr = harness.run_cell(spec, args.workload, args.seed, args.seconds,
+                               trace=True)
     out = {"workload": args.workload, "seed": args.seed,
            "correct": all(rec["readings"][k] <= lim
                           for k, lim in spec.limits(args.workload).items()),
-           "trace": {"cost": (t["window_s"] / t["units"])
-                     / (e["window_s"] / e["units"])},
+           "trace": harness.trace_line(rec, rr),
            "busy_ms_per_unit": 1e3 * rr["busy_s"] / rr["units"],
            "units": rr["units"], "card": harness.card_line()}
     metrics = {}
@@ -379,24 +203,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         val = spec.reader(m["name"])(rr)
         if val is not None:
             metrics[m["name"]] = val
-    suffix = ".coarse" if traffic.get("stage") == "coarse" else (
-        ".eval" if traffic["kind"] == "eval" else ".train")
-    for name, read in READERS.items():
-        if name.endswith(suffix):
-            val = read(rr)
-            if val is not None:
-                metrics[name] = val
     out["metrics"] = metrics
-    p = rr["program"]
-    if p is not None:
-        out["trace"]["unattributed"] = p["unattributed_s"] / p["device_total_s"]
-        out["unattributed_top"] = p["unattributed_top"]
+    if rr["program"] is not None:
+        out["unattributed_top"] = rr["program"]["unattributed_top"]
         out["program"] = summary(rr)
-        # idle gaps named by the innermost span, the program's by its name
-        spans = rr["spans"] + [(path.split("/")[-1], s, e)
-                               for path, s, e in p["spans"]]
-        out["idle_gaps"] = record.named_gaps(rr["device"], spans, rr["t0"],
-                                             rr["t1"])
+    out["idle_gaps"] = harness.breakdown(rr)["idle_gaps"]
     print(json.dumps(out))
     return 0
 

@@ -8,13 +8,17 @@ record (``harness.run_record``) holds:
 
 * ``e2e``: the untraced window: ``units`` (steps or views) and ``work``
   (rays) done, ``window_s``, ``step_ms`` (CUDA-event intervals),
-  ``host_ms`` (the benchmark's span a step), ``chunks``, ``peak`` (bytes)
+  ``host_ms`` (the benchmark's span a step), ``peak`` (bytes)
   and ``setup_s``;
 * with ``--trace 1`` also the traced window: ``units``, ``window_s``,
   ``busy_s``, ``device`` (busy intervals), ``t0`` / ``t1``, ``groups``
-  (device seconds by kernel group);
+  (device seconds by kernel group) and ``program`` (``program.entry``:
+  device seconds by the program's span path, host seconds by span name,
+  synchronizing calls by span path, and the program's counters; None
+  where the program recorded nothing);
 * the cell's ``kind``, ``bounds`` (least seconds a step of each kernel
-  group's logical work) and ``head_flops_per_unit``.
+  group's logical work) and ``head_flops_per_row`` (the heads' FLOPs a
+  row they shade).
 """
 from __future__ import annotations
 
@@ -63,15 +67,18 @@ def host_ms_per_step(rec: Dict) -> Optional[float]:
 
 
 def mfu(kind: str) -> Reader:
-    """The heads' product FLOPs of every step (or chunk) of the untraced
-    window over its seconds times the bf16 peak, in percent."""
+    """The heads' product FLOPs of the rows they shade live, over the
+    untraced window's seconds times the bf16 peak, in percent: the traced
+    window's ``head_live_rows`` a unit (step or view), times each row's
+    FLOPs, times the untraced window's units."""
     def read(rec):
-        e = rec["e2e"]
-        units = e["chunks"] if kind == "eval" else e["units"]
-        if rec["kind"] != kind or not units or not rec["head_flops_per_unit"]:
+        e, p = rec["e2e"], rec.get("program")
+        live = p["counters"].get("head_live_rows") if p else None
+        if rec["kind"] != kind or not e["units"] or not live \
+                or not rec.get("units"):
             return None
-        return (100.0 * rec["head_flops_per_unit"] * units
-                / (e["window_s"] * PEAKS["bf16_flops"]))
+        return (100.0 * live / rec["units"] * rec["head_flops_per_row"]
+                * e["units"] / (e["window_s"] * PEAKS["bf16_flops"]))
     return read
 
 
@@ -113,4 +120,54 @@ def roofline(group: str) -> Reader:
         if not sec or not bound or not rec.get("units"):
             return None
         return 100.0 * bound * rec["units"] / sec
+    return read
+
+
+# ---- the program's spans and counters (``program.entry``) -------------
+
+
+def _under(table: Dict, prefix: str):
+    return sum(v for k, v in table.items()
+               if k == prefix or k.startswith(prefix + "/"))
+
+
+def span_device_ms(path: str, kind: str) -> Reader:
+    """Device ms a unit credited to the program's spans under ``path``."""
+    def read(rec):
+        p = rec.get("program")
+        if rec["kind"] != kind or not p or not rec.get("units"):
+            return None
+        return 1e3 * _under(p["device_s"], path) / rec["units"]
+    return read
+
+
+def span_host_ms(name: str, kind: str) -> Reader:
+    """Host ms a unit inside the program's spans named ``name``."""
+    def read(rec):
+        p = rec.get("program")
+        if rec["kind"] != kind or not p or not rec.get("units") \
+                or name not in p["host_s"]:
+            return None
+        return 1e3 * p["host_s"][name] / rec["units"]
+    return read
+
+
+def span_syncs(root: str, kind: str) -> Reader:
+    """Synchronizing calls a unit under the program's span path ``root``."""
+    def read(rec):
+        p = rec.get("program")
+        if rec["kind"] != kind or not p or not rec.get("units"):
+            return None
+        return _under(p["syncs"], root) / rec["units"]
+    return read
+
+
+def head_fill(kind: str) -> Reader:
+    """100 x the shading head's live rows over the rows it computed."""
+    def read(rec):
+        p = rec.get("program")
+        c = p["counters"] if p else {}
+        if rec["kind"] != kind or not c.get("head_rows"):
+            return None
+        return 100.0 * c.get("head_live_rows", 0) / c["head_rows"]
     return read

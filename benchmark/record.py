@@ -1,8 +1,10 @@
 """Arithmetic over what a window leaves: rates, tails, the device's busy
 intervals, idle gaps and the kernel groups.
 
-``BUCKETS`` / ``bucket`` are a frozen copy of ``chip_smoke.py:_BUCKETS``
-and ``_bucket`` (kernel name fragments -> group, first match wins).
+``BUCKETS`` is a frozen copy of ``chip_smoke.py:_BUCKETS`` (kernel name
+fragments -> group, first match wins); a later group is a file of its
+own (``groups/``), which takes only the names ``BUCKETS`` leave as
+"other".
 """
 from __future__ import annotations
 
@@ -28,10 +30,22 @@ BUCKETS = (
 )
 
 
-def bucket(kernel: str) -> str:
-    """The group of a device kernel's name ("other": none matches)."""
-    return next((b for b, frags in BUCKETS
-                 if any(f in kernel for f in frags)), "other")
+FROZEN_NAMES = frozenset([b for b, _ in BUCKETS] + ["other"])
+
+
+def bucket(kernel: str, groups: Sequence = ()) -> str:
+    """The group of a device kernel's name: the first of ``BUCKETS`` that
+    matches, else the one of ``groups`` (``groups.load()``) that matches,
+    else "other".  Two of ``groups`` that match raise ``ValueError``."""
+    frozen = next((b for b, frags in BUCKETS
+                   if any(f in kernel for f in frags)), None)
+    if frozen is not None:
+        return frozen
+    found = [g.name for g in groups if any(f in kernel for f in g.fragments)]
+    if len(found) > 1:
+        raise ValueError(f"the kernel {kernel!r} matches the group files "
+                         f"{found}")
+    return found[0] if found else "other"
 
 
 def percentile(values: Sequence[float], q: float) -> float:
@@ -104,10 +118,14 @@ def named_gaps(device_intervals, spans, t0: float, t1: float, top: int = 10):
     return [[span_at(spans, (s + e) / 2), e - s] for s, e in g[:top]]
 
 
-def group_seconds(kernels: Iterable[Tuple[str, float, float]]) -> Dict[str, float]:
+def group_seconds(kernels: Iterable[Tuple[str, float, float]],
+                  groups: Sequence = ()) -> Dict[str, float]:
     """Device seconds by ``bucket`` of (name, start, end) kernel events."""
     out: Dict[str, float] = {}
+    names: Dict[str, str] = {}
     for name, s, e in kernels:
-        b = bucket(name)
+        if name not in names:
+            names[name] = bucket(name, groups)
+        b = names[name]
         out[b] = out.get(b, 0.0) + (e - s)
     return out

@@ -1,8 +1,9 @@
 """The benchmark's data, found by name: ``BENCHMARK.json`` at the root of
 the checkout, one JSON file per configuration (``configs/<name>.json``),
 per traffic mix (``traffic/<name>.json``) and per cell's limits
-(``limits/<cell>.json``), and one reader per per-layer metric
-(``metrics/<name>.py``, a module with ``read(record)``).  A later cell or
+(``limits/<cell>.json``), one reader per metric (``metrics/<name>.py``,
+a module with ``read(record)``) and one file per kernel group that the
+frozen ``record.BUCKETS`` do not name (``groups/<group>.py``).  A later cell or
 metric is added by adding files and entries; nothing here names one.
 """
 from __future__ import annotations
@@ -74,11 +75,16 @@ class Spec:
         return load_reader(self.bench_dir / "metrics" / f"{metric}.py")
 
 
-def load_reader(path: Path) -> Callable[[Dict], Optional[float]]:
-    """``read`` of one metric's module, loaded from its file (metric
-    names hold dots, so they are not importable by name)."""
+def load_module(path: Path, prefix: str):
+    """A module of the benchmark's data loaded from its file (metric names
+    hold dots, so they are not importable by name)."""
     spec = importlib.util.spec_from_file_location(
-        "benchmark_metric_" + re.sub(r"\W", "_", path.stem), path)
+        prefix + re.sub(r"\W", "_", path.stem), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def load_reader(path: Path) -> Callable[[Dict], Optional[float]]:
+    """``read`` of one metric's module, loaded from its file."""
+    return load_module(path, "benchmark_metric_").read

@@ -1,7 +1,8 @@
 """Device time credited to the span that launched it, the synchronizing
-calls and the readers of ``benchmark/program.py``, on a hand-written
-Chrome trace: kernels and copies with their correlated launches, the
-anchor synchronize, the benchmark's spans and the program's."""
+calls, ``run_record``'s ``program`` entry and the metric files that read
+it, on a hand-written Chrome trace: kernels and copies with their
+correlated launches, the anchor synchronize, the benchmark's spans and
+the program's."""
 import pytest
 
 from benchmark import harness, program, record
@@ -71,11 +72,11 @@ def _events():
     ]
 
 
-def _traced(cls=program.ProgramTraced):
-    tr = cls()
+def _traced(recording=True):
+    tr = T.Traced()
     tr.anchor = 100.0
     tr.host_spans = list(BENCH)
-    if cls is program.ProgramTraced:
+    if recording:
         tr.recording = {"spans": [program_span(*s) for s in PROGRAM],
                         "counters": {"head_live_rows": 30, "head_rows": 40}}
     return tr.load(_events())
@@ -88,9 +89,9 @@ def program_span(name, id_, parent, tid, s, e):
 
 
 def _rr(kind="train", tr=None, units=1):
-    rec = {"bounds": {"serve B1": 1e-4}, "head_flops_per_unit": 1e9,
+    rec = {"bounds": {"serve B1": 1e-4}, "head_flops_per_row": 1e3,
            "e2e": dict(units=4, work=4 * 8192, window_s=1.0, step_ms=[250.0] * 4,
-                       host_ms=[240.0] * 4, chunks=4, peak=2 ** 30),
+                       host_ms=[240.0] * 4, peak=2 ** 30),
            "traced": {"trace": tr or _traced(), "units": units}}
     return harness.run_record(rec, kind, 9.0)
 
@@ -127,64 +128,86 @@ def test_a_benchmark_span_inside_a_program_span_adds_its_name():
         "render_view", None]
 
 
-def test_the_readers():
+NEW = {  # the metric files that read the program's entry, on this trace
+    "device_ms.forward.train": 5.1, "device_ms.shade.train": 3.0,
+    "device_ms.backward.train": 9.0, "device_ms.adam.train": 6.1,
+    "device_ms.tv.train": 0.0, "head_fill.train": 75.0,
+    "syncs_per_step.train": 3.0, "syncs_per_step.coarse": 3.0,
+    "host_ms.forward.coarse": 16.0, "host_ms.backward.coarse": 19.0,
+    "host_ms.adam.coarse": 6.0}
+NEW_EVAL = ("host_ms_per_view.rays.eval", "host_ms_per_view.score.eval",
+            "syncs_per_view.eval")
+
+
+def test_run_record_carries_the_program_entry():
     tr = _traced()
     assert tr.offset == pytest.approx(OFF)
     rr = _rr(tr=tr)
-    rr["program"] = program.entry(tr)
-    R = program.READERS
-    assert R["device_ms.forward.train"](rr) == pytest.approx(5.1)
-    assert R["device_ms.shade.train"](rr) == pytest.approx(3.0)
-    assert R["device_ms.backward.train"](rr) == pytest.approx(9.0)
-    assert R["device_ms.adam.train"](rr) == pytest.approx(6.1)
-    assert R["device_ms.tv.train"](rr) == 0.0
-    assert R["head_fill.train"](rr) == pytest.approx(75.0)
-    assert R["syncs_per_step.train"](rr) == 3.0
-    assert R["host_ms.forward.coarse"](rr) == pytest.approx(16.0)
-    assert R["host_ms.backward.coarse"](rr) == pytest.approx(19.0)
-    assert R["host_ms.adam.coarse"](rr) == pytest.approx(6.0)
-    # the idle gap inside backward is named by the program's span
-    spans = rr["spans"] + [(p.split("/")[-1], s, e)
-                           for p, s, e in rr["program"]["spans"]]
+    assert rr["program"] == program.entry(tr)
+    assert rr["program"]["counters"] == {"head_live_rows": 30, "head_rows": 40}
+    assert _rr(tr=_traced(recording=False))["program"] is None
+
+
+def test_the_readers():
+    spec = Spec()
+    rr = _rr()
+    for name, want in NEW.items():
+        assert spec.reader(name)(rr) == pytest.approx(want), name
+    # the idle gap inside backward is named by the program's span in the
+    # breakdown, and by the benchmark's alone without the program's
     gaps = dict((round(1e3 * sec, 6), name) for name, sec in
-                record.named_gaps(rr["device"], spans, rr["t0"], rr["t1"]))
+                harness.breakdown(rr)["idle_gaps"])
     assert gaps[11.0] == "backward"
     assert record.named_gaps(rr["device"], rr["spans"], rr["t0"],
                              rr["t1"])[1] == ["step", pytest.approx(11e-3)]
 
 
+def test_the_eval_metric_files_read_the_render_spans():
+    tr = T.Traced()
+    tr.anchor = 100.0
+    tr.host_spans = [("window", *WINDOW), ("view", 100.002, 100.098)]
+    tr.recording = {"spans": [
+        program_span("render_view", 0, None, 1, 100.0030, 100.0970),
+        program_span("rays", 1, 0, 1, 100.0040, 100.0060),
+        program_span("to_host", 2, 0, 1, 100.0070, 100.0090),
+        program_span("score", 3, 0, 1, 100.0400, 100.0900)], "counters": {}}
+    tr.load(_events())
+    rr = _rr("eval", tr=tr)
+    spec = Spec()
+    assert spec.reader("host_ms_per_view.rays.eval")(rr) == pytest.approx(2.0)
+    assert spec.reader("host_ms_per_view.score.eval")(rr) == pytest.approx(50.0)
+    # forward's synchronize and uncovered copy, adam's copy
+    assert spec.reader("syncs_per_view.eval")(rr) == 3.0
+
+
 @pytest.mark.parametrize("kind", ["train", "eval"])
 def test_readers_of_other_kinds_and_of_no_recording_read_nothing(kind):
+    spec = Spec()
     rr = _rr(kind)
-    rr["program"] = program.entry(_traced())
-    for name, read in program.READERS.items():
-        if not name.endswith(".eval" if kind == "train" else (".train",
-                                                              ".coarse")):
-            continue
-        assert read(rr) is None, name
+    other = NEW_EVAL if kind == "train" else tuple(NEW)
+    for name in other:
+        assert spec.reader(name)(rr) is None, name
     rr["program"] = None          # a program without the recorder
-    for name, read in program.READERS.items():
-        assert read(rr) is None, name
-    tr = _traced()
-    tr.recording = {"spans": [], "counters": {}}
-    assert program.entry(tr) is None
+    for name in tuple(NEW) + NEW_EVAL:
+        assert spec.reader(name)(rr) is None, name
+    assert program.entry(_traced(recording=False)) is None
 
 
 def test_existing_keys_and_readers_are_unchanged():
-    """``run_record`` of the same window through ``trace.Traced`` and
-    ``ProgramTraced``: the same keys and values, and every reader of
-    ``BENCHMARK.json`` reads the same with the ``program`` entry added."""
-    old = _rr(tr=_traced(T.Traced))
+    """``run_record`` of the same window with and without the program's
+    recording: the same keys and values besides ``program``, and every
+    metric of ``BENCHMARK.json`` but the ``*_mfu`` and the new ones reads
+    the same."""
+    old = _rr(tr=_traced(recording=False))
     new = _rr()
-    assert set(old) == set(new) == {
-        "kind", "bounds", "head_flops_per_unit", "e2e", "units", "window_s",
-        "busy_s", "device", "spans", "t0", "t1", "groups"}
-    assert all(old[k] == new[k] for k in old)
-    tr = _traced()
-    new["program"] = program.entry(tr)
-    assert new["program"] and tr.kernels == _traced(T.Traced).kernels
+    assert set(new) == set(old) == {
+        "kind", "bounds", "head_flops_per_row", "e2e", "units", "window_s",
+        "busy_s", "device", "spans", "t0", "t1", "groups", "program"}
+    assert all(old[k] == new[k] for k in old if k != "program")
     spec = Spec()
     for m in spec.doc["end_to_end"] + spec.doc["per_layer"]:
+        if m["name"] in NEW or m["name"].endswith("_mfu"):
+            continue
         assert spec.reader(m["name"])(new) == spec.reader(m["name"])(old), m
 
 
@@ -198,8 +221,7 @@ def test_a_window_without_the_trace_never_turns_the_recorder_on(monkeypatch):
         raise AssertionError("the recorder was turned on")
 
     monkeypatch.setattr(profiling, "enable", refuse)
-    monkeypatch.setattr(T, "traced", program.traced)
-    with program.traced("cpu", on=False) as tr:
+    with T.traced("cpu", on=False) as tr:
         assert tr is None
     D, cell = tiny_cell("dtu", "coarse_train")
     rec = D.run(cell, 0.2)

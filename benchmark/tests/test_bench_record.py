@@ -74,3 +74,84 @@ def test_a_trace_without_the_anchor_takes_the_device_span():
     tr = T.Traced().load([{"cat": "kernel", "name": "k", "ts": 2e6, "dur": 5e5},
                           {"cat": "kernel", "name": "k", "ts": 3e6, "dur": 5e5}])
     assert not tr.anchored and tr.window == (2.0, 3.5) and tr.spans == []
+
+
+BUCKETS_AT_PR_17 = (
+    ("accumulate B7", ("rowmajor_",)),
+    ("serve B5", ("tap_serve_samples",)),
+    ("accumulate B6", ("tap_tile_accumulate", "tap_block_sums",
+                       "tap_run_totals")),
+    ("serve B1", ("window_gather_tiles",)),
+    ("accumulate B2", ("cm_tile_accumulate", "cm_block_sums",
+                       "cm_run_totals")),
+    ("shade B3", ("fused_shade_fwd",)),
+    ("shade B4", ("fused_shade_bwd", "fused_shade_dw",
+                  "shade_reduce_partials")),
+    ("matmul", ("gemm", "Gemm", "cutlass")),
+    ("sort", ("sort", "radix", "Sort")),
+    ("gather/scatter", ("index", "gather", "scatter", "Index")),
+    ("reduce", ("reduce", "Reduce")),
+    ("elementwise", ("elementwise", "Elementwise", "vectorized")),
+)
+KERNELS = [("window_gather_tiles<16>", 0.0, 1.0), ("cm_block_sums", 1.0, 1.5),
+           ("void at::native::vectorized_elementwise_kernel", 2.0, 2.25),
+           ("sm90_xmma_gemm_f32f32", 3.0, 3.5), ("k0_densify_fwd", 4.0, 4.75),
+           ("k0_densify_index_bwd", 5.0, 5.5), ("unknown", 6.0, 6.125)]
+
+
+def _group_file(directory, name, fragments, bound="None"):
+    (directory / f"{name}.py").write_text(
+        f"FRAGMENTS = {tuple(fragments)!r}\n\n\n"
+        f"def bound_s(cell):\n    return {bound}\n")
+
+
+def test_the_frozen_buckets_are_those_of_pr_17():
+    assert record.BUCKETS == BUCKETS_AT_PR_17
+
+
+def test_without_group_files_the_groups_are_the_frozen_ones():
+    from benchmark import groups
+
+    def frozen(kernel):
+        return next((b for b, frags in BUCKETS_AT_PR_17
+                     if any(f in kernel for f in frags)), "other")
+    want = {}
+    for name, s, e in KERNELS:
+        want[frozen(name)] = want.get(frozen(name), 0.0) + (e - s)
+    assert groups.load() == ()
+    assert record.group_seconds(KERNELS, groups.load()) == want
+    assert record.group_seconds(KERNELS) == want
+
+
+def test_a_group_file_takes_only_names_that_would_be_other(tmp_path):
+    from benchmark import groups
+
+    # "k0_densify" also matches the index kernel, which "gather/scatter"
+    # keeps; "cm_block" matches a B2 kernel, which B2 keeps
+    _group_file(tmp_path, "k0_densify", ["k0_densify", "cm_block"])
+    got = record.group_seconds(KERNELS, groups.load(tmp_path))
+    assert got["k0_densify"] == 0.75
+    assert got["gather/scatter"] == 0.5
+    assert got["accumulate B2"] == 0.5
+    assert got["other"] == 0.125
+    assert record.bucket("unknown", groups.load(tmp_path)) == "other"
+
+
+def test_two_group_files_that_match_one_name_are_an_error(tmp_path):
+    from benchmark import groups
+
+    _group_file(tmp_path, "densify", ["densify"])
+    _group_file(tmp_path, "k0_densify", ["k0_"])
+    loaded = groups.load(tmp_path)
+    assert [g.name for g in loaded] == ["densify", "k0_densify"]
+    with pytest.raises(ValueError, match="densify"):
+        record.group_seconds(KERNELS, loaded)
+
+
+@pytest.mark.parametrize("name", ["other", "elementwise", "matmul"])
+def test_a_group_file_may_not_take_a_frozen_name(tmp_path, name):
+    from benchmark import groups
+
+    _group_file(tmp_path, name, ["unknown"])
+    with pytest.raises(ValueError, match="frozen"):
+        groups.load(tmp_path)

@@ -52,12 +52,15 @@ def test_every_entry_is_found_by_its_name():
 
 def _record(kind, units, traced):
     e2e = dict(units=units, work=8192 * units, window_s=2.0, step_ms=[200.0] * units,
-               host_ms=[150.0] * units, chunks=79 * units, peak=2 ** 31, setup_s=12.5)
+               host_ms=[150.0] * units, peak=2 ** 31, setup_s=12.5)
     rec = dict(kind=kind, bounds={"serve B1": 1e-3} if units else {},
-               head_flops_per_unit=1e12 if units else 0.0, e2e=e2e)
+               head_flops_per_row=1e9, e2e=e2e)
     if traced:
         rec.update(units=units, window_s=2.0, busy_s=1.5, device=[(0.0, 1.5)],
-                   spans=[], t0=0.0, t1=2.0, groups={"serve B1": 4e-3 * units})
+                   spans=[], t0=0.0, t1=2.0, groups={"serve B1": 4e-3 * units},
+                   program={"device_s": {}, "host_s": {}, "syncs": {},
+                            "counters": {"head_live_rows": 1000 * units,
+                                         "head_rows": 2000 * units}})
     return rec
 
 
@@ -78,7 +81,8 @@ def test_readers_read_the_windows_they_name():
     assert spec.reader("host_ms_per_step.coarse")(rec) == 150.0
     assert spec.reader("idle_share.train")(rec) == pytest.approx(25.0)
     assert spec.reader("coarse.B1_roofline")(rec) == pytest.approx(25.0)
-    # the mfu is taken over the untraced window: 10 steps of 1 TFLOP in 2 s
+    # the mfu is taken over the untraced window: 10 steps of 1,000 live
+    # rows of 1 GFLOP in 2 s
     peak = S.load_reader(S.BENCH_DIR / "metrics" / "train_mfu.py")
     assert peak(rec) == pytest.approx(100 * 10e12 / (2.0 * 989e12))
     assert spec.reader("eval_mfu")(rec) is None

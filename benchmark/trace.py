@@ -1,15 +1,18 @@
 """The traced window: ``torch.profiler`` with CUDA activity alone over the
-window, reduced to device intervals by kernel name, and the benchmark's
-own host spans placed on the trace's clock.
+window, with the program's span recorder on, reduced to device intervals
+by kernel name, each device record with the host time of the call that
+launched it, and the benchmark's own host spans and the program's
+recording placed on the trace's clock.
 
 The profiler records no host operator (CPU activity would slow a
 host-paced step ~1.7x); the host spans are the drivers' ``span`` blocks,
-timed with ``time.perf_counter``.  They are placed on the trace's clock
-by the ``cudaDeviceSynchronize`` that :func:`traced` makes as the
-profile starts, whose host time the trace records too.  The window is
-the span ``window``, which ends after the window's synchronize.  The
-Chrome trace is written to a temporary file under ``TMPDIR`` and
-removed once read.
+timed with ``time.perf_counter``, and the program's
+(``fgs_nerf_tpu_torch/utils/profiling.py``, on for the traced window
+alone).  Both are placed on the trace's clock by the
+``cudaDeviceSynchronize`` that :func:`traced` makes as the profile
+starts, whose host time the trace records too.  The window is the span
+``window``, which ends after the window's synchronize.  The Chrome trace
+is written to a temporary file under ``TMPDIR`` and removed once read.
 """
 from __future__ import annotations
 
@@ -20,11 +23,10 @@ import tempfile
 import time
 from typing import Dict, List, Optional, Tuple
 
-import torch
-
 from benchmark import record
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 ANCHOR = "cudaDeviceSynchronize"
 
 _spans: Optional[List[Tuple[str, float, float]]] = None
@@ -56,25 +58,45 @@ class Traced:
         self.host_spans: List[Tuple[str, float, float]] = []  # perf_counter
         self.anchor = 0.0               # perf_counter as the anchor began
         self.anchored = False
+        self.offset: Optional[float] = None   # trace clock less perf_counter
+        # cat, name, start, end, launch time (None: no launch found)
+        self.records: List[Tuple[str, str, float, float, Optional[float]]] = []
+        self.calls: List[Tuple[str, float, int, Optional[int]]] = []  # name, t, tid, corr
+        self.copies: Dict[int, str] = {}  # correlation -> "HtoD", "DtoH", ...
+        self.recording: Dict = {"spans": [], "counters": {}}
 
     def load(self, events: List[Dict]) -> "Traced":
         anchors = []
+        launch = {}
         for e in events:
-            if "ts" not in e or "dur" not in e:
+            cat = e.get("cat", "")
+            if cat in LAUNCH_CATS and "ts" in e:
+                corr = e.get("args", {}).get("correlation")
+                t = float(e["ts"]) * 1e-6
+                if corr is not None:
+                    launch.setdefault(corr, t)
+                if cat == "cuda_runtime":
+                    self.calls.append((e.get("name", ""), t, e.get("tid", 0), corr))
+                    if e.get("name") == ANCHOR and "dur" in e:
+                        anchors.append(t)
+        for e in events:
+            cat = e.get("cat", "")
+            if cat not in DEVICE_CATS or "ts" not in e or "dur" not in e:
                 continue
             s = float(e["ts"]) * 1e-6
             t = s + float(e["dur"]) * 1e-6
-            cat = e.get("cat", "")
-            if cat in DEVICE_CATS:
-                self.device.append((s, t))
-                if cat == "kernel":
-                    self.kernels.append((e["name"], s, t))
-            elif cat == "cuda_runtime" and e.get("name") == ANCHOR:
-                anchors.append(s)
+            corr = e.get("args", {}).get("correlation")
+            self.device.append((s, t))
+            self.records.append((cat, e.get("name", ""), s, t, launch.get(corr)))
+            if cat == "kernel":
+                self.kernels.append((e["name"], s, t))
+            elif cat == "gpu_memcpy":
+                # "Memcpy DtoH (Device -> Pageable)"
+                self.copies[corr] = (e.get("name", "").split() + ["", ""])[1]
         win = [(s, t) for name, s, t in self.host_spans if name == "window"]
         if anchors and win:
             off = self._offset(anchors, win[0])
-            self.anchored = True
+            self.anchored, self.offset = True, off
             for name, s, t in self.host_spans:
                 if name == "window":
                     self.window = (s + off, t + off)
@@ -101,22 +123,29 @@ class Traced:
 
 @contextlib.contextmanager
 def traced(device, on: bool = True):
-    """Profile the block where ``on`` (else yield ``None``); the result's
+    """Profile the block where ``on``, with the program's recorder on
+    inside it (else yield ``None``: the recorder stays off); the result's
     fields are filled when the block ends."""
     global _spans
     if not on:
         yield None
         return
+    import torch
+    from fgs_nerf_tpu_torch.utils import profiling
+
     out = Traced()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         out.anchor = time.perf_counter()
         torch.cuda.synchronize(device)
         _spans = out.host_spans
+        profiling.enable()
         try:
             yield out
         finally:
             _spans = None
+            out.recording = profiling.export()
+            profiling.disable()
         torch.cuda.synchronize(device)
     fd, path = tempfile.mkstemp(prefix="bench_trace_", suffix=".json")
     os.close(fd)
