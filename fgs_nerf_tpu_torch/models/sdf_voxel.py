@@ -33,7 +33,7 @@ import torch.utils.checkpoint
 
 from fgs_nerf_tpu_torch.core.box import SceneBox, grid_resolution, max_samples_per_ray
 from fgs_nerf_tpu_torch.core.grids import (
-    init_tensorf_params, tensorf_densify, tensorf_scale,
+    init_tensorf_params, tensorf_densify, tensorf_rows, tensorf_scale,
 )
 from fgs_nerf_tpu_torch.device import DeviceLike, resolve_device, to_device
 from fgs_nerf_tpu_torch.models.mlp import (
@@ -1046,7 +1046,11 @@ def forward_fine_sorted(params, buffers, cfg: SDFModelConfig, box: SceneBox,
     hierarchical taps (B5, backward B6) — z/y taps on the z-minor sort,
     x taps on an x-minor sort of the transposed grid — the finite
     differences, rgbnet -> refnet shading, and three rgb channels back to
-    ray order for compositing.
+    ray order for compositing.  With a TensoRF k0 (``grid_type='tensorf'``)
+    both passes serve ``[sdf | grad]`` alone and the head's k0 is the
+    factors' query at its rows (``core/grids.py:tensorf_rows``, from each
+    row's lower corner ``b - 1`` and fractions, as ``rays_xyz2``): no
+    dense k0 is made.
 
     The head shades the live prefix of the pass-2 stream alone: a dead
     slot's key is the sentinel ``r_sent``, which the stable sort puts
@@ -1093,8 +1097,12 @@ def forward_fine_sorted(params, buffers, cfg: SDFModelConfig, box: SceneBox,
         sdf_grid = smooth_grid(sdf_grid, cfg.smooth_ksize, cfg.smooth_sigma)
     sdf3 = sdf_grid[..., 0]
     grad_cm = sdf_gradient_cm(sdf3, cfg.voxel_size, cfg.grad_mode)
-    k0_cm = k0_dense(params, cfg).permute(3, 0, 1, 2)
-    field_cm = torch.cat([sdf3[None], grad_cm, k0_cm], dim=0)
+    # a TensoRF k0 is queried at the head's rows below: no k0 channel is
+    # densified or served
+    factored = cfg.grid_type == "tensorf"
+    field_cm = torch.cat([sdf3[None], grad_cm] + (
+        [] if factored else [k0_dense(params, cfg).permute(3, 0, 1, 2)]),
+        dim=0)
 
     rows, (fx, fy, fz), ok = rows_fracs_cm(*_index_coords(cfg, box, px, py, pz),
                                            sizes)
@@ -1231,8 +1239,14 @@ def forward_fine_sorted(params, buffers, cfg: SDFModelConfig, box: SceneBox,
     def prefix(rows):  # the head's rows: the stream's live prefix
         return [r[..., :n_head] for r in rows]
 
+    if factored:  # k0 at the head's rows, from their lower corners
+        k02_h = tensorf_rows(
+            params["k0"], torch.stack(prefix((b0, b1, b2))).long() - 1,
+            torch.stack(prefix((fx2_s, fy2_s, fz2_s))), cfg.k0_dim)
+    else:
+        k02_h = k02_s[:, :n_head]
     head_in = (prefix(rays_xyz2), prefix((vx2_s, vy2_s, vz2_s)),
-               prefix(normal2), sdf2_s[:n_head], k02_s[:, :n_head],
+               prefix(normal2), sdf2_s[:n_head], k02_h,
                prefix(all_feat_rows), prefix(grad_rows),
                prefix((gcx, gcy, gcz)))
     with profiling.span("shade"):

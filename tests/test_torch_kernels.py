@@ -743,3 +743,43 @@ def test_b8_refuses_nets_past_its_limits(cuda, rows, dims, match):
     with pytest.raises(ValueError, match=match):
         FM.fused_mlp_cm_fwd(blocks, weights, biases)
     assert B89.KERNEL.launches["fused_mlp_fwd"] == n0
+
+
+def test_tensorf_rows_match_densify_at_full_width(cuda):
+    """The TensoRF k0 query (``core/grids.py:tensorf_rows``) at the fine
+    grid of ``shiny_blender`` (258 x 257 x 252, 48 components a plane, a
+    [144, 12] basis) against ``tensorf_densify`` served trilinearly, on
+    32,768 rows: inside, on the faces, past them (zero padding) and at
+    the sorted engine's sentinel corner.  Trilinear weights factor over
+    the axes, so the two differ by float32 summation order alone (the
+    basis product sums 144 terms in another order): values and every
+    factor's gradient within 1e-5 of their largest magnitude."""
+    from benchmark.reference.sdf_step import serve
+    from fgs_nerf_tpu_torch.core import grids as G
+
+    ws, r, c, n = (258, 257, 252), 48, 12, 32768
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    params = G.init_tensorf_params(gen, c, ws, r, device=cuda)
+    size = torch.tensor(ws, dtype=torch.float32, device=cuda)[:, None]
+    idx = torch.rand((3, n), generator=gen, device=cuda) * (size + 1.0) - 1.0
+    idx[:, :64] = torch.floor(idx[:, :64])             # on grid nodes
+    idx[0, 64:128] = ws[0] - 1.0                        # the last x face
+    idx[2, 128:192] = 0.0                               # the first z face
+    base = torch.floor(idx).long()
+    fr = idx - torch.floor(idx)
+    zp = ST.z_stride(ws[2])
+    base[:, -64:] = torch.tensor([ws[0], ws[1], zp - 2], device=cuda)[:, None]
+    leaves = {k: v.requires_grad_(True) for k, v in params.items()}
+    got = G.tensorf_rows(leaves, base, fr, c)
+    dense = G.tensorf_densify(leaves, c)
+    b = base.float()
+    want = serve(dense, b[0] + fr[0], b[1] + fr[1], b[2] + fr[2],
+                 list(fr.unbind(0))).t()
+    with torch.no_grad():
+        assert float(want[:, -64:].abs().max()) == 0.0
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    g = torch.randn(got.shape, generator=gen, device=cuda)
+    g_got = torch.autograd.grad((got * g).sum(), list(leaves.values()))
+    g_want = torch.autograd.grad((want * g).sum(), list(leaves.values()))
+    for k, a, w in zip(leaves, g_got, g_want):
+        assert float((a - w).abs().max()) <= 1e-5 * float(w.abs().max()), k
