@@ -22,11 +22,13 @@ Phases (any failure raises and exits nonzero, with no result line):
    and its blocks' dynamic shared memory.
 3. Main path: zero the launch counts, run warm-up and timed train steps
    (``train/trainer.py:make_train_step``), read the counts; the loss
-   must be finite and fall, and every kernel must have launched.  Then
-   profile two more steps (``torch.profiler``) and print device time
-   per step by kernel group and the device's idle share.
+   must be finite and fall, and every kernel must have launched (the
+   masked Adam once a leaf a step).  Then profile two more steps
+   (``torch.profiler``) and print device time per step by kernel group
+   and the device's idle share.
 4. Kernel path against plain path: one step through the kernels and
-   one through their plain twins from the same state; compare loss,
+   one through their plain twins from the same state (the masked Adam's
+   twin ``optim/masked_adam.py:adam_leaf`` included); compare loss,
    gradients and post-Adam parameters.
 
 The fine stage, at the ``bench.py:_fine_workload`` configuration
@@ -151,7 +153,8 @@ The remaining loaders, the DVGO geometry search and the TensoRF k0:
     memory) and profiled (idle share), and a kernel step is compared with
     a plain-twin step (loss 1e-4, gradients relative L2 1e-3).  Checks:
     finite PSNR, a DVGO checkpoint of density and k0 with a non-empty
-    sdf_mask, B7 alone launched by the DVGO stage, B1-B4 by the coarse.
+    sdf_mask, B7 and the masked Adam alone launched by the DVGO stage,
+    B1-B4 by the coarse.
 18. TensoRF: the ``bench.py`` sorted coarse step with ``grid_type=
     'tensorf'`` (8 components, densified every step): 2 warm-up and 4
     timed steps with B1-B4 launched each step, then a kernel step against
@@ -201,6 +204,19 @@ launch_local``:
     ``utils/profiling.py:trace_steps`` (the trace's path, kernel count
     and device ms by group), then the ``llffhold`` test views' PSNR /
     SSIM and the 512^3 mesh.
+
+The masked Adam (``csrc/masked_adam.cu``, A1: no TPU kernel; every
+training path launches it once a leaf a step, which phases 3, 6, 7, 10,
+11, 14, 15, 17-20 and 22 count):
+
+23. Record every leaf ``adam_update`` receives in two sorted fine steps
+    and two sorted coarse steps from a fresh state (a rung's first step,
+    whose k0 gradient reaches Adam channel-major against channel-last
+    parameters and moments: the tiled pass; the step after it: the flat
+    pass); on those same tensors hold ``masked_adam_step`` bit for bit
+    against ``adam_leaf`` (p', m' and v': values, signs of zeros and
+    strides), time both and bound each call by its bytes (28 B an
+    element, 32 with a per-voxel lr, at 3.35 TB/s).
 
 B1 and B5 calls of phases 2, 5-8, 14, 15 and 22 also carry a library
 time: one
@@ -428,6 +444,7 @@ _BUCKETS = (  # (bucket, kernel-name fragments, kernel call site), first
     ("shade B3", ("fused_shade_fwd",), "fused_shade_cm_fwd"),
     ("shade B4", ("fused_shade_bwd", "fused_shade_dw",
                   "shade_reduce_partials"), "fused_shade_cm_bwd"),
+    ("adam A1", ("masked_adam_step",), None),
     ("matmul", ("gemm", "Gemm", "cutlass"), None),
     ("sort", ("sort", "radix", "Sort"), None),
     ("gather/scatter", ("index", "gather", "scatter", "Index"), None),
@@ -519,8 +536,11 @@ def _patched(pairs):
 
 
 def _plain_twins(ST, FS, SC, B1, B2, B56, B7):
-    """Route the seven kernel call sites to their plain twins."""
+    """Route the eight kernel call sites to their plain twins."""
+    from fgs_nerf_tpu_torch.optim import masked_adam as OPT
+
     return _patched([
+        (OPT, "masked_adam_step", OPT.adam_leaf),
         (SC, "dense_accumulate", B7.dense_accumulate_plain),
         (ST, "window_gather_cm", B1.window_gather_cm_plain),
         (ST, "dense_accumulate_cm", B2.dense_accumulate_cm_plain),
@@ -529,6 +549,15 @@ def _plain_twins(ST, FS, SC, B1, B2, B56, B7):
         (FS, "fused_shade_cm_fwd", FS.fused_shade_cm_fwd_plain),
         (FS, "fused_shade_cm_bwd", FS.fused_shade_cm_bwd_plain),
     ])
+
+
+def _adam_leaves(params, lrs):
+    """The leaves ``adam_update`` updates a step: one masked Adam launch
+    each."""
+    from fgs_nerf_tpu_torch.optim.masked_adam import tree_leaves
+
+    return sum(1 for k, x in params.items() if k in lrs
+               for leaf in tree_leaves(x) if leaf.numel())
 
 
 def _leaves(tree, prefix=""):
@@ -1209,6 +1238,7 @@ def _fine_phases(torch, np, card, dev, batch, n_rand):
     from fgs_nerf_tpu_torch.ops import scatter as SC
     from fgs_nerf_tpu_torch.ops import sorted_cm as ST
     from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
+    from fgs_nerf_tpu_torch.ops.cuda import masked_adam as A1
     from fgs_nerf_tpu_torch.ops.cuda import scatter_combine as B7
     from fgs_nerf_tpu_torch.ops.cuda import scatter_combine_cm as B2
     from fgs_nerf_tpu_torch.ops.cuda import tap_serve_cm as B56
@@ -1277,9 +1307,18 @@ def _fine_phases(torch, np, card, dev, batch, n_rand):
         return {n: k.launches[n] for n, (_, k) in sites.items()}
 
     def zero_counts():
-        for _, k in sites.values():
+        for k in [k for _, k in sites.values()] + [A1.KERNEL]:
             for fn in k.launches:
                 k.launches[fn] = 0
+
+    def adam_counts(path, n_steps):
+        n = A1.KERNEL.launches["masked_adam_step"]
+        want = _adam_leaves(params0, lrs) * n_steps
+        print(json.dumps({"path": path, "masked_adam_step_launches": n,
+                          "steps": n_steps, "card": card}))
+        _check(n == want, f"{path}: {n} masked Adam launches, {want} "
+                          "expected (one a leaf a step)")
+        return n
 
     # ---- 6. fine main path ----------------------------------------------
     zero_counts()
@@ -1309,6 +1348,8 @@ def _fine_phases(torch, np, card, dev, batch, n_rand):
     for name, n in launches.items():
         _check(n == 2 * (N_WARMUP + N_FINE_STEPS),
                f"{name}: {n} launches on the fine path, 2 per step expected")
+    launches["masked_adam_step"] = adam_counts("fine",
+                                               N_WARMUP + N_FINE_STEPS)
     _device_breakdown(torch, lambda: step(params, opt_state, {}, *batch,
                                           s_val, lrs, 1.0), dt * 1e3, card,
                       path="fine")
@@ -1337,6 +1378,7 @@ def _fine_phases(torch, np, card, dev, batch, n_rand):
            "masked fine loss is not finite")
     for name, n in masked_launches.items():
         _check(n == 4, f"{name}: {n} launches in two masked fine steps")
+    masked_launches["masked_adam_step"] = adam_counts("fine masked", 2)
     for name, rs in check_all(calls, " masked").items():
         fine_calls[name] += rs
     del p_m, o_m, buffers, band
@@ -1393,13 +1435,15 @@ def _lattice_phases(torch, np, card, dev, batch, n_rand):
     from fgs_nerf_tpu_torch.ops import scatter as SC
     from fgs_nerf_tpu_torch.ops import sorted_cm as ST
     from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
+    from fgs_nerf_tpu_torch.ops.cuda import masked_adam as A1
     from fgs_nerf_tpu_torch.ops.cuda import scatter_combine as B7
     from fgs_nerf_tpu_torch.ops.cuda import scatter_combine_cm as B2
     from fgs_nerf_tpu_torch.ops.cuda import tap_serve_cm as B56
     from fgs_nerf_tpu_torch.ops.cuda import window_gather_cm as B1
     from fgs_nerf_tpu_torch.optim.masked_adam import init_state
 
-    kernels = (B1.KERNEL, B2.KERNEL, FS.KERNEL, B56.KERNEL, B7.KERNEL)
+    kernels = (B1.KERNEL, B2.KERNEL, FS.KERNEL, B56.KERNEL, B7.KERNEL,
+               A1.KERNEL)
 
     def zero_counts():
         for k in kernels:
@@ -1471,7 +1515,9 @@ def _lattice_phases(torch, np, card, dev, batch, n_rand):
             "metrics": {k: float(v) for k, v in metrics.items()}}))
         _check(all(np.isfinite(losses)), losses)
         _check(losses[-1] < losses[0], f"{path} loss did not fall: {losses}")
-        want = {"dense_accumulate": per_step[stage] * (N_WARMUP + n_steps[stage])}
+        want = {"dense_accumulate": per_step[stage] * (N_WARMUP + n_steps[stage]),
+                "masked_adam_step": _adam_leaves(params0, lrs)
+                * (N_WARMUP + n_steps[stage])}
         _check(launches[path] == want,
                f"{path}: launches {launches[path]}, expected {want}")
         _device_breakdown(torch, lambda: step(params, opt_state, {}, *batch,
@@ -2200,6 +2246,9 @@ def _pipeline_phase(torch, np, card, repo, kernels, config_text,
             fn = _LAUNCHER_OF[site]
             _check(st["launches"].get(fn, 0) > 0,
                    f"{stage}: {fn} was not launched ({st['launches']})")
+        _check(st["launches"].get("masked_adam_step", 0) > 0,
+               f"{stage}: the masked Adam was not launched "
+               f"({st['launches']})")
         _check(not any(fn.startswith("fused_mlp") for fn in st["launches"]),
                f"{stage}: B8/B9 launched on a training path")
 
@@ -2769,9 +2818,10 @@ def _dvgo_phase(torch, np, card, repo, kernels):
            and report["sdf_mask_voxels"] > 0,
            f"DVGO checkpoint {sorted(ck.params)}, mask "
            f"{report['sdf_mask_voxels']}")
-    _check(dvgo["launches"] == {"dense_accumulate": dvgo["launches"].get(
-        "dense_accumulate", 0)} and dvgo["launches"]["dense_accumulate"]
-           >= 2 * 16, f"DVGO launches {dvgo['launches']}")
+    _check(set(dvgo["launches"]) == {"dense_accumulate", "masked_adam_step"}
+           and dvgo["launches"]["dense_accumulate"] >= 2 * 16
+           and dvgo["launches"]["masked_adam_step"] >= 16,
+           f"DVGO launches {dvgo['launches']}")
     for fn in ("window_gather_cm", "dense_accumulate_cm", "fused_shade_fwd",
                "fused_shade_bwd"):
         _check(coarse["launches"].get(fn, 0) > 0,
@@ -2830,6 +2880,9 @@ def _tensorf_phase(torch, np, card, dev, batch, n_rand, kernels):
                "fused_shade_bwd"):
         _check(launches.get(fn, 0) == N_WARMUP + 4,
                f"TensoRF coarse: {fn} launches {launches}")
+    _check(launches.get("masked_adam_step", 0)
+           == _adam_leaves(params, lrs) * (N_WARMUP + 4),
+           f"TensoRF coarse: masked Adam launches {launches}")
     report = _step_vs_plain(torch, loss_and_grads, step, state, {}, batch,
                             s_val, lrs,
                             _plain_twins(ST, FS, SC, B1, B2, B56, B7))
@@ -2849,9 +2902,9 @@ N_MESH_STEPS = 4
 # the launchers each dp path must reach, on each rank
 _DP_PATH_LAUNCHERS = {
     "coarse": ("window_gather_cm", "dense_accumulate_cm", "fused_shade_fwd",
-               "fused_shade_bwd"),
+               "fused_shade_bwd", "masked_adam_step"),
     "fine": ("window_gather_cm", "dense_accumulate_cm", "tap_window_serve_cm",
-             "tap_dense_accumulate_cm"),
+             "tap_dense_accumulate_cm", "masked_adam_step"),
 }
 
 
@@ -2860,13 +2913,14 @@ def _rank_kernels():
     from fgs_nerf_tpu_torch.ops.cuda import build
     from fgs_nerf_tpu_torch.ops.cuda import fused_mlp_cm as B89
     from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
+    from fgs_nerf_tpu_torch.ops.cuda import masked_adam as A1
     from fgs_nerf_tpu_torch.ops.cuda import scatter_combine as B7
     from fgs_nerf_tpu_torch.ops.cuda import scatter_combine_cm as B2
     from fgs_nerf_tpu_torch.ops.cuda import tap_serve_cm as B56
     from fgs_nerf_tpu_torch.ops.cuda import window_gather_cm as B1
 
     kernels = (B1.KERNEL, B2.KERNEL, FS.KERNEL, B56.KERNEL, B7.KERNEL,
-               B89.KERNEL)
+               B89.KERNEL, A1.KERNEL)
     build.build_all(kernels)
     return kernels
 
@@ -3079,6 +3133,8 @@ def _sp_rank(device, n_rand=8192):
         torch, stepm, (ps, os_), batch, s_val, lrs, kernels, dev)
     _check(counts.get("dense_accumulate", 0) > 0,
            f"sp: B7 not launched on rank {mesh.rank}")
+    _check(counts.get("masked_adam_step", 0) > 0,
+           f"sp: the masked Adam not launched on rank {mesh.rank}")
     check_replicas(mesh, {k: v for k, v in params.items()
                           if k not in GRID_PARAMS}, "sp MLP leaves")
     return {"rank": mesh.rank, "loss_rel_err": rel, "grid_worst": grid_worst,
@@ -3513,6 +3569,70 @@ def _write_capture(run_dir):
     return ["--dataset_type", "llff", "--dataset_path", str(root)]
 
 
+# ---- phase 23: the masked Adam on the leaves of fine and coarse steps ----
+
+
+def _adam_phase(torch, np, card, dev, batch, n_rand):
+    """Phase 23: every masked Adam call of two sorted fine and two sorted
+    coarse steps from a fresh state, held bit for bit against
+    ``adam_leaf`` on the same tensors, timed and bounded.  Returns the
+    calls' records."""
+    from fgs_nerf_tpu_torch.models import sdf_voxel as M
+    from fgs_nerf_tpu_torch.ops.cuda import masked_adam as A1
+    from fgs_nerf_tpu_torch.optim import masked_adam as OPT
+
+    kernel = OPT.masked_adam_step
+    calls = []
+
+    def checked(path):
+        def run(*args):
+            p, g, m, v, _, _, plr, skip = args[:8]
+            got, want = kernel(*args), OPT.adam_leaf(*args)
+            same = all(a.stride() == b.stride() and torch.equal(
+                a.view(torch.int32), b.view(torch.int32))
+                for a, b in zip(got, want))
+            r = dict(
+                path=path, shape=list(p.shape), param_strides=list(p.stride()),
+                grad_strides=list(g.stride()),
+                tiled=not A1.plan(p, g, m, v, plr, skip).flat,
+                skip_zero_grad=skip, per_voxel_lr=plr is not None,
+                bit_equal=same,
+                max_abs_err=max(float((a - b).abs().max()) if a.numel() else
+                                0.0 for a, b in zip(got, want)),
+                ms=_time_ms(lambda: kernel(*args), 10, torch),
+                plain_ms=_time_ms(lambda: OPT.adam_leaf(*args), 3, torch),
+                bound_ms=(28 + 4 * (plr is not None)) * p.numel()
+                / PEAK_BYTES_PER_S * 1e3, bound_by="bytes")
+            calls.append(r)
+            print(json.dumps({"kernel": "masked_adam_step", **r,
+                              "card": card}))
+            _check(same, f"masked Adam, {path} {r['shape']}: not bit-equal "
+                         "to adam_leaf")
+            return got
+        return run
+
+    for stage in ("fine", "coarse"):
+        _, _, params, lrs, s_val, _, step = _setup(torch, M, stage, "sorted",
+                                                   dev, n_rand)
+        opt = OPT.init_state(params)
+        for which in ("first step", "second step"):
+            path = f"{stage} {which}"
+            with _patched([(OPT, "masked_adam_step", checked(path))]):
+                params, opt, _ = step(params, opt, {}, *batch, s_val, lrs, 1.0)
+            torch.cuda.synchronize()
+            n = sum(c["path"] == path for c in calls)
+            _check(n == _adam_leaves(params, lrs),
+                   f"masked Adam, {path}: {n} leaves recorded")
+        del params, opt
+        torch.cuda.empty_cache()
+    k0 = [c["tiled"] for c in calls
+          if c["path"].startswith("fine") and c["shape"][-1] == 12
+          and len(c["shape"]) == 4]
+    _check(k0 == [True, False], f"fine k0 passes (tiled?) {k0}: the first "
+                                "step tiled, the second flat expected")
+    return calls
+
+
 def _nccl_world_1():
     """Under ``torch.distributed.run --nproc_per_node 1``: one sorted coarse
     bench step on ``--mesh dp=1`` through NCCL and one without a mesh,
@@ -3570,6 +3690,7 @@ def main():
     from fgs_nerf_tpu_torch.ops.cuda import build
     from fgs_nerf_tpu_torch.ops.cuda import fused_mlp_cm as B89
     from fgs_nerf_tpu_torch.ops.cuda import fused_shade_cm as FS
+    from fgs_nerf_tpu_torch.ops.cuda import masked_adam as A1
     from fgs_nerf_tpu_torch.ops.cuda import scatter_combine as B7
     from fgs_nerf_tpu_torch.ops.cuda import scatter_combine_cm as B2
     from fgs_nerf_tpu_torch.ops.cuda import tap_serve_cm as B56
@@ -3581,7 +3702,7 @@ def main():
 
     # ---- 1. build ------------------------------------------------------
     kernels = (B1.KERNEL, B2.KERNEL, FS.KERNEL, B56.KERNEL, B7.KERNEL,
-               B89.KERNEL)
+               B89.KERNEL, A1.KERNEL)
     build.build_all(kernels)
     print(f"build: {time.perf_counter() - t0:.1f} s")
     for k in kernels:
@@ -3676,6 +3797,7 @@ def main():
         "dense_accumulate_cm": (B2.KERNEL, "dense_accumulate_cm"),
         "fused_shade_cm_fwd": (FS.KERNEL, "fused_shade_fwd"),
         "fused_shade_cm_bwd": (FS.KERNEL, "fused_shade_bwd"),
+        "masked_adam_step": (A1.KERNEL, "masked_adam_step"),
     }
     for k in kernels:
         for fn in k.launches:
@@ -3709,6 +3831,10 @@ def main():
     _check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     for name, n in launches.items():
         _check(n > 0, f"{name} was not launched on the main path")
+    _check(launches["masked_adam_step"]
+           == _adam_leaves(params0, lrs) * (N_WARMUP + N_STEPS),
+           f"coarse: {launches['masked_adam_step']} masked Adam launches, "
+           "one a leaf a step expected")
     _device_breakdown(torch, lambda: step(params, opt_state, {}, *batch,
                                           s_val, lrs, 1.0), dt * 1e3, card)
 
@@ -3773,6 +3899,12 @@ def main():
         prepare=_write_capture, eval_lpips=False, validate=False,
         trace_stage="fine")
     print(json.dumps({"phase_22_s": time.perf_counter() - t_new}))
+
+    # ---- 23. the masked Adam on the leaves of fine and coarse steps -------
+    t_new = time.perf_counter()
+    torch.cuda.empty_cache()
+    adam_calls = _adam_phase(torch, np, card, dev, batch, n_rand)
+    print(json.dumps({"phase_23_s": time.perf_counter() - t_new}))
 
     rows_out = []
     for name, kern, replaces, main_call in (
@@ -3884,6 +4016,36 @@ def main():
                 *(f"capture_{st}" for st in capture))},
             "calls": calls,
         })
+    main = next(c for c in adam_calls if c["path"] == "fine second step"
+                and c["shape"][-1] == 12 and len(c["shape"]) == 4)
+    by_path = {
+        "coarse": coarse_launches["masked_adam_step"],
+        "fine": fine_launches["masked_adam_step"],
+        "fine_masked": masked_launches["masked_adam_step"],
+        **{p.replace(" ", "_"): c.get("masked_adam_step", 0)
+           for p, c in lattice_launches.items()},
+        **{p: c.get("masked_adam_step", 0) for p, c in dvgo_launches.items()},
+        "tensorf_coarse": tensorf_launches.get("masked_adam_step", 0),
+        **{p: c.get("masked_adam_step", 0) for p, c in mesh_launches.items()},
+        **{f"{label}_{st}": r["launches"].get("masked_adam_step", 0)
+           for label, stages in (("pipeline", pipeline), ("dtu", dtu),
+                                 ("capture", capture))
+           for st, r in stages.items()}}
+    rows_out.append({
+        "name": "masked_adam_step", "route": "cuda",
+        "source": A1.KERNEL.source_rel,
+        "replaces": "none: fgs_nerf_tpu/optim/masked_adam.py is plain jnp",
+        "launches": by_path["fine"],
+        "max_abs_err": max(c["max_abs_err"] for c in adam_calls),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None, "timed_call": "fine k0, second step (flat)",
+        "launches_by_path": by_path,
+        "launches_per_step": {
+            "coarse": by_path["coarse"] / (N_WARMUP + N_STEPS),
+            "fine": by_path["fine"] / (N_WARMUP + N_FINE_STEPS)},
+        "calls": adam_calls,
+    })
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows_out}))

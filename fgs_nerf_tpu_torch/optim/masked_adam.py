@@ -5,6 +5,13 @@ folded into the step size, ``skip_zero_grad`` groups leave the parameter
 and both moments untouched where the gradient is exactly zero, and a
 per-voxel learning-rate array scales the step where given.  Parameters
 are dicts ``{group: tensor or dict of tensors}``.
+
+A leaf on the CPU takes :func:`adam_leaf`, the plain version; a leaf on
+a CUDA device takes its kernel, ``ops/cuda/masked_adam.py``
+(``csrc/masked_adam.cu``: one pass a leaf, bit-equal to
+:func:`adam_leaf` on the card).  ``adam_update`` counts the elements it
+updates (``adam_elems``) and those the kernel updated
+(``adam_fused_elems``) with the span recorder.
 """
 from __future__ import annotations
 
@@ -12,6 +19,9 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
+
+from fgs_nerf_tpu_torch.ops.cuda.masked_adam import masked_adam_step
+from fgs_nerf_tpu_torch.utils.profiling import count
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +63,27 @@ def tree_leaves(tree):
         yield tree
 
 
+def adam_leaf(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+              v: torch.Tensor, lr: torch.Tensor, bias: torch.Tensor,
+              plr: Optional[torch.Tensor], skip_zero_grad: bool,
+              beta1: float, beta2: float, eps: float):
+    """One leaf's (p', m', v'), plain PyTorch: the twin of the kernel
+    ``ops/cuda/masked_adam.py:masked_adam_step``, which repeats every
+    rounding of it."""
+    m_n = beta1 * m + (1.0 - beta1) * g
+    v_n = beta2 * v + (1.0 - beta2) * g * g
+    step_scale = lr * bias
+    if plr is not None:
+        step_scale = step_scale * plr
+    p_n = p - step_scale * m_n / (torch.sqrt(v_n) + eps)
+    if skip_zero_grad:
+        live = g != 0.0
+        p_n = torch.where(live, p_n, p)
+        m_n = torch.where(live, m_n, m)
+        v_n = torch.where(live, v_n, v)
+    return p_n, m_n, v_n
+
+
 def adam_update(params: Dict[str, Any], grads: Dict[str, Any],
                 state: AdamState, lrs: Dict[str, Any],
                 opts: Dict[str, ParamOpts], per_lr: Optional[Dict] = None,
@@ -64,6 +95,7 @@ def adam_update(params: Dict[str, Any], grads: Dict[str, Any],
     bias = torch.sqrt(1.0 - torch.pow(beta2, t)) / (1.0 - torch.pow(beta1, t))
 
     new_p, new_m, new_v = {}, {}, {}
+    elems = {"adam_elems": 0, "adam_fused_elems": 0}
     for name, p in params.items():
         if name not in lrs:
             new_p[name] = p
@@ -75,18 +107,13 @@ def adam_update(params: Dict[str, Any], grads: Dict[str, Any],
         plr = per_lr.get(name) if (per_lr and o.has_per_lr) else None
 
         def leaf(p_l, g_l, m_l, v_l, plr_l=None):
-            m_n = beta1 * m_l + (1.0 - beta1) * g_l
-            v_n = beta2 * v_l + (1.0 - beta2) * g_l * g_l
-            step_scale = lr * bias
-            if plr_l is not None:
-                step_scale = step_scale * plr_l
-            p_n = p_l - step_scale * m_n / (torch.sqrt(v_n) + eps)
-            if o.skip_zero_grad:
-                live = g_l != 0.0
-                p_n = torch.where(live, p_n, p_l)
-                m_n = torch.where(live, m_n, m_l)
-                v_n = torch.where(live, v_n, v_l)
-            return p_n, m_n, v_n
+            elems["adam_elems"] += p_l.numel()
+            fn = adam_leaf
+            if p_l.is_cuda:
+                elems["adam_fused_elems"] += p_l.numel()
+                fn = masked_adam_step
+            return fn(p_l, g_l, m_l, v_l, lr, bias, plr_l, o.skip_zero_grad,
+                      beta1, beta2, eps)
 
         trees = (p, grads[name], state.exp_avg[name], state.exp_avg_sq[name])
         if plr is not None:
@@ -95,4 +122,6 @@ def adam_update(params: Dict[str, Any], grads: Dict[str, Any],
         new_p[name] = tree_map(lambda x: x[0], out)
         new_m[name] = tree_map(lambda x: x[1], out)
         new_v[name] = tree_map(lambda x: x[2], out)
+    for k, n in elems.items():
+        count(k, n)
     return new_p, AdamState(step, new_m, new_v)
